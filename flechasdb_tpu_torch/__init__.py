@@ -1,10 +1,15 @@
 """flechasdb-tpu on PyTorch and CUDA.
 
-The port of the JAX package's build → query main path to PyTorch, with
-hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
+The port of the JAX package's build → query paths to PyTorch (the
+bucketed and masked layouts, exact rerank), with hand-written CUDA kernels
+for an NVIDIA H100 (``sm_90a``):
 
-* K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``);
-* K-B, the fused Lloyd round of every k-means round (``csrc/lloyd_round.cu``).
+* K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``), also
+  behind ``ops.scan.adc_lookup``;
+* K-B, the fused Lloyd round of the coarse fit and of PQ fits whose
+  subvector width does not divide 128 (``csrc/lloyd_round.cu``);
+* K-C, the fused Lloyd round over division-grouped data, for PQ widths
+  m < 128 that divide 128 (``csrc/lloyd_grouped.cu``).
 
 Work runs on an explicit device, ``"cuda"`` by default. On a CPU tensor
 each kernel's plain PyTorch version runs instead; on a CUDA tensor the

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel since the last :func:`reset_launches`.
-LAUNCHES = {"adc_scan": 0, "lloyd_round": 0}
+LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
+            "lloyd_grouped": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: The compiler's output of the build this process made (``None`` when the
@@ -98,6 +99,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fdb_adc_scan.restype = i
     lib.fdb_lloyd_round.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.fdb_lloyd_round.restype = i
+    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fdb_lloyd_grouped.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -7,7 +7,8 @@ The build runs on an explicit device, ``"cuda"`` unless asked otherwise:
 2. residues, divided into ``[D, N, M/D]``,
 3. the ``D`` division codebooks trained as one batched fit.
 
-Every Lloyd round is kernel K-B, every query's bucket scan kernel K-A.
+Every Lloyd round is kernel K-B, or K-C for PQ subvector widths below 128
+that divide it; every query's bucket scan is kernel K-A.
 The :class:`Database` keeps the JAX package's numpy fields, so
 :mod:`.convert` carries a database across in either direction, and the
 same ``with_seed`` gives the same ``vector_ids`` in both packages.
@@ -80,6 +81,7 @@ class DatabaseBuilder:
         self._num_clusters = 16
         self._seed: Optional[int] = None
         self._metric = "l2"
+        self._keep_residues = True
 
     def with_partitions(self, p: int) -> "DatabaseBuilder":
         if p <= 0:
@@ -117,6 +119,14 @@ class DatabaseBuilder:
         """Fixes the clustering RNG and the UUIDs (the same ids as the JAX
         package for the same seed)."""
         self._seed = seed
+        return self
+
+    def with_residues(self, keep: bool = True) -> "DatabaseBuilder":
+        """Whether the built database retains per-vector residues (``N·M·4``
+        bytes of host memory and a device-to-host copy in :meth:`build`).
+        They back :meth:`Database.reconstruct` and ``query_batch(rerank=)``;
+        without them both raise :class:`InvalidArgs`."""
+        self._keep_residues = keep
         return self
 
     def build_with_events(self, events: EventHandler) -> "Database":
@@ -180,7 +190,8 @@ class DatabaseBuilder:
             partition_indices=parts.indices.cpu().numpy().astype(np.int32),
             codebooks=pq.centroids.cpu().numpy(),
             codes=pq.indices.T.cpu().numpy().astype(np.uint32),
-            residues=parts.residues.cpu().numpy(),
+            residues=(parts.residues.cpu().numpy()
+                      if self._keep_residues else None),
             metric=self._metric,
             device=str(self._device),
         )
@@ -207,6 +218,7 @@ class Database:
 
     _local_idx: Optional[np.ndarray] = field(default=None, repr=False)
     _dev: Optional[object] = field(default=None, repr=False)
+    _dev_orig: Optional[torch.Tensor] = field(default=None, repr=False)
 
     @property
     def num_vectors(self) -> int:
@@ -248,6 +260,16 @@ class Database:
                 device=self.device)
         return self._dev
 
+    def _device_originals(self) -> torch.Tensor:
+        """The input vectors, ``residues + centroids[pidx]``, kept on the
+        device for exact rerank."""
+        if self._dev_orig is None:
+            self._dev_orig = torch.as_tensor(
+                self.residues
+                + self.partition_centroids[self.partition_indices],
+                device=self.device)
+        return self._dev_orig
+
     def _prep_queries(self, vs: np.ndarray) -> np.ndarray:
         if self.metric == "cosine":
             return normalize_rows(vs, "query")
@@ -284,9 +306,11 @@ class Database:
     def query_batch(self, vs, k: int, nprobe: int,
                     rerank: Optional[int] = None,
                     where=None) -> List[List[QueryResult]]:
-        """Batched k-NN, one device pass for all queries."""
-        if rerank is not None:
-            raise not_ported("rerank=", 9)
+        """Batched k-NN, one device pass for all queries.
+
+        ``rerank``: re-score the top ``rerank`` (>= k) ADC candidates with
+        exact distances against the original vectors (``residues +
+        centroids``, kept on the device) and return the best ``k``."""
         if where is not None:
             raise not_ported("where= (attribute filters)", 10)
         self._validate_query(k, nprobe)
@@ -295,7 +319,16 @@ class Database:
             raise InvalidArgs(
                 f"query vector size {vs.shape[1]} != {self.vector_size}")
         vs = self._prep_queries(vs)
-        dists, rows, _ = self._device_state().query(vs, k, nprobe)
+        if rerank is None:
+            dists, rows, _ = self._device_state().query(vs, k, nprobe)
+        else:
+            if rerank < k:
+                raise InvalidArgs(f"rerank ({rerank}) must be >= k ({k})")
+            if self.residues is None:
+                raise InvalidArgs("rerank requires retained residues")
+            dists, rows = self._device_state().query_rerank(
+                vs, self._device_originals(), k=k, nprobe=nprobe,
+                rerank=rerank)
         return [self._to_results(dists[b], rows[b]) for b in range(len(vs))]
 
     def query_range(self, v, radius: float, nprobe: int,

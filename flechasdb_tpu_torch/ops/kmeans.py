@@ -8,7 +8,9 @@ The same semantics, carried over:
   minimum squared distance (clamped :func:`.distance.sqdist`); when every
   weight is zero (all rows identical) the draw is row 0.
 * Lloyd rounds through kernel K-B (:func:`.lloyd.lloyd_round`, unclamped
-  ``‖c‖² − 2x·c``); the normalized gradient ``max‖Δc‖ / max‖c‖`` stops a
+  ``‖c‖² − 2x·c``) or, for subvector widths below 128 that divide it,
+  kernel K-C (:func:`.lloyd.lloyd_round_grouped`, see :func:`_auto_impl`);
+  the normalized gradient ``max‖Δc‖ / max‖c‖`` stops a
   batch entry below ``epsilon``; a converging entry keeps the assignment
   against its pre-update centroids; entries that exhaust ``max_rounds``
   are reassigned against their final centroids.
@@ -28,9 +30,11 @@ from typing import NamedTuple
 import torch
 
 from .. import events as ev
+from .._roadmap import not_ported
 from ..events import EventHandler, _noop
 from .distance import assign_chunked, sqdist_one
-from .lloyd import lloyd_round
+from .lloyd import (GROUP_WIDTH, lloyd_round, lloyd_round_grouped,
+                    regroup_divisions)
 
 #: Maximum Lloyd rounds (``kmeans.rs:114``).
 MAX_ROUNDS = 100
@@ -118,14 +122,47 @@ def _means_grad(sums: torch.Tensor, counts: torch.Tensor,
     return new, grad
 
 
+#: The port's round kernels (``impl=``), by the JAX package's name:
+#: ``"round"`` is ``"pallas"`` (K-B), ``"grouped"`` is ``"pallas_grouped"``
+#: (K-C). The JAX package's ``"xla"`` formulation is what the plain
+#: versions compute on a CPU tensor.
+IMPLS = ("round", "grouped")
+
+
+def _auto_impl(x: torch.Tensor) -> str:
+    """The JAX package's ``_auto_impl`` shape rule: on a CUDA tensor,
+    ``m < 128`` dividing 128 with ``m >= 8`` takes K-C, anything else K-B.
+    A CPU tensor takes K-B's wrapper, which runs the plain version."""
+    m = x.shape[2]
+    if (x.device.type == "cuda" and m < GROUP_WIDTH
+            and GROUP_WIDTH % m == 0 and m >= 8):
+        return "grouped"
+    return "round"
+
+
+def _resolve_impl(impl: str | None, x: torch.Tensor) -> str:
+    if impl is not None and impl.endswith("_fast"):
+        raise not_ported(f"impl={impl!r} (fast_math numerics)", 12)
+    if impl is None:
+        return _auto_impl(x)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl: {impl!r} (expected one of {IMPLS})")
+    return impl
+
+
 def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
         epsilon: float = DEFAULT_EPSILON, max_rounds: int = MAX_ROUNDS,
-        handler: EventHandler = _noop) -> KMeansResult:
+        handler: EventHandler = _noop, impl: str | None = None,
+        ) -> KMeansResult:
     """k-means++ seeding then Lloyd rounds over ``x [B, N, M]`` f32.
 
     ``N == k`` is one vector a cluster (``kmeans.rs:158-169``).
     ``handler`` receives the clustering events of the JAX package's
-    ``fit_with_events``."""
+    ``fit_with_events``. ``impl`` picks the round kernel (:data:`IMPLS`;
+    ``None`` applies :func:`_auto_impl`); for ``"grouped"`` the data is
+    regrouped once, outside the Lloyd loop, and the final reassignment
+    goes through the same kernel."""
+    impl = _resolve_impl(impl, x)
     b, n, m = x.shape
     dev = x.device
     if n < k:
@@ -144,9 +181,18 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     if max_rounds == 0:
         return KMeansResult(centroids, indices, rounds, gradient)
 
+    if impl == "grouped":
+        xg = regroup_divisions(x)
+
+        def round_fn(c):
+            return lloyd_round_grouped(xg, c)
+    else:
+        def round_fn(c):
+            return lloyd_round(x, c)
+
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for r in range(max_rounds):
-        idx_f, sums, counts = lloyd_round(x, centroids)
+        idx_f, sums, counts = round_fn(centroids)
         new_c, grad = _means_grad(sums, counts, centroids)
         centroids = torch.where(done[:, None, None], centroids, new_c)
         # A batch entry converging in this round keeps idx_f, the
@@ -168,6 +214,6 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     else:
         # max_rounds exhausted: the carried assignment of unconverged
         # entries predates their final centroid update.
-        fresh = lloyd_round(x, centroids)[0]
+        fresh = round_fn(centroids)[0]
         indices = torch.where(done[:, None], indices, fresh)
     return KMeansResult(centroids, indices, rounds, gradient)

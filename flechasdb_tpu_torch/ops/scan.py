@@ -12,6 +12,12 @@ On a CUDA tensor it launches the kernel; on a CPU tensor it runs
 :func:`adc_lookup_indexed_plain`, the gather-and-sum of the JAX package's
 ``bucket_scan(impl="gather")``. The source note on what bounds the kernel
 and how its design answers is at the top of ``csrc/adc_scan.cu``.
+
+:func:`adc_lookup` keeps the contract of the JAX package's
+``pallas_scan.adc_lookup``, the same sum over PRE-gathered codes ``[G,
+D or ceil(D/4), L]``. On a CUDA tensor it runs K-A with the identity
+bucket index and no lengths, as the JAX package runs it on the TPU
+(``_pipe_call`` with ``bidx = arange(G)``); it counts its launches apart.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ from .. import _kernels
 
 #: Largest table the kernel stages in shared memory (227 KB).
 MAX_TABLE_BYTES = 232448
+
+#: ``adc_lookup`` takes code rows whose length L is a multiple of this.
+LANE = 128
 
 
 def unpack_codes(words: torch.Tensor, d: int) -> torch.Tensor:
@@ -88,14 +97,11 @@ def _check(bcodes, ftab, bidx, lengths, d: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def adc_lookup_indexed(bcodes: torch.Tensor, ftab: torch.Tensor,
-                       bidx: torch.Tensor,
-                       lengths: Optional[torch.Tensor] = None, *,
-                       d: int) -> torch.Tensor:
-    """ADC lookup-sum reading buckets in place; see the module docstring."""
-    _check(bcodes, ftab, bidx, lengths, d)
-    if bcodes.device.type == "cpu":
-        return adc_lookup_indexed_plain(bcodes, ftab, bidx, lengths, d=d)
+def _launch(bcodes: torch.Tensor, ftab: torch.Tensor, bidx: torch.Tensor,
+            lengths: Optional[torch.Tensor], d: int, name: str,
+            ) -> torch.Tensor:
+    """Runs K-A on checked arguments and counts the launch under
+    ``name``."""
     if bcodes.device.type != "cuda":
         raise ValueError(f"unsupported device: {bcodes.device}")
     g, dc = ftab.shape
@@ -113,6 +119,49 @@ def adc_lookup_indexed(bcodes: torch.Tensor, ftab: torch.Tensor,
             None if lengths is None else lengths.data_ptr(), out.data_ptr(),
             g, rows, l, d, dc // d, int(rows != d),
             _kernels.stream_of(bcodes))
-    _kernels.check(rc, "adc_scan")
-    _kernels.LAUNCHES["adc_scan"] += 1
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return out
+
+
+def adc_lookup_indexed(bcodes: torch.Tensor, ftab: torch.Tensor,
+                       bidx: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None, *,
+                       d: int) -> torch.Tensor:
+    """ADC lookup-sum reading buckets in place; see the module docstring."""
+    _check(bcodes, ftab, bidx, lengths, d)
+    if bcodes.device.type == "cpu":
+        return adc_lookup_indexed_plain(bcodes, ftab, bidx, lengths, d=d)
+    return _launch(bcodes, ftab, bidx, lengths, d, "adc_scan")
+
+
+def _identity(codes: torch.Tensor) -> torch.Tensor:
+    return torch.arange(codes.shape[0], dtype=torch.int32,
+                        device=codes.device)
+
+
+def adc_lookup_plain(codes: torch.Tensor, ftab: torch.Tensor, *,
+                     d: Optional[int] = None) -> torch.Tensor:
+    """:func:`adc_lookup_indexed_plain` with bucket ``g`` for cell ``g``."""
+    return adc_lookup_indexed_plain(codes, ftab, _identity(codes),
+                                    d=codes.shape[1] if d is None else d)
+
+
+def adc_lookup(codes: torch.Tensor, ftab: torch.Tensor, *,
+               d: Optional[int] = None) -> torch.Tensor:
+    """ADC lookup-sum over pre-gathered codes ``[G, D or ceil(D/4), L]``
+    int32 and ``ftab [G, D*C]`` f32 → ``[G, L]`` f32. ``d`` defaults to
+    the code rows (unpacked); ``L`` must be a multiple of 128."""
+    g, rows, l = codes.shape
+    if d is None:
+        d = rows
+    if l % LANE:
+        raise ValueError(f"L ({l}) must be a multiple of {LANE}")
+    if ftab.ndim != 2 or ftab.shape[0] != g:
+        raise ValueError(f"ftab shape {tuple(ftab.shape)} != (G, D*C) with "
+                         f"G={g}")
+    bidx = _identity(codes)
+    _check(codes, ftab, bidx, None, d)
+    if codes.device.type == "cpu":
+        return adc_lookup_plain(codes, ftab, d=d)
+    return _launch(codes, ftab, bidx, None, d, "adc_lookup")

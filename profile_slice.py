@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's slice goes, on one NVIDIA GPU.
+"""Where the time of the PyTorch port's paths goes, on one NVIDIA GPU.
 
-    python3 profile_slice.py [--seed N] [--out chiprun_out/profile_slice.json]
+    python3 profile_slice.py [--config headline|sift] [--seed N] [--out F]
 
-The data and configuration are ``chip_smoke.py``'s: 100,000 x 1536 unit
-rows made with numpy from the seed, P=100, D=12, C=256, queries k=10,
-nprobe=5. After a warm-up build, which also builds the kernels:
+The data and configurations are ``chip_smoke.py``'s. ``headline``:
+100,000 x 1536 unit rows made with numpy from the seed, P=100, D=12,
+C=256, a batch of 64 queries, k=10, nprobe=5 (writes
+``chiprun_out/profile_slice.json`` by default). ``sift``: 1,000,000 x 128
+GMM rows and 1,000 queries (``flechasdb_tpu_torch.synth``), P=1024, D=8,
+C=256, served from a bucketed ``DeviceIndex``, a batch of all 1,000
+queries at k=10, nprobe=10, with and without rerank of the top 100, and
+the same batch through ``Database.query_batch``, which takes the layout
+policy's pick (writes ``chiprun_out/profile_sift.json``). After a warm-up
+build, which also builds the kernels:
 
 1. Build phases. One build whose event handler synchronizes the device
    and reads the host clock at every event, so each phase holds its own
@@ -15,7 +22,8 @@ nprobe=5. After a warm-up build, which also builds the kernels:
 2. Device time of one build (no synchronizing handler) under
    ``torch.profiler``: the kernels and copies by name, their total, and
    the busy share (device time / wall time).
-3. The same for a warm ``query_batch`` of 64 queries and for one query.
+3. The same for a warm query batch and for one query (and, for
+   ``sift``, a batch with rerank and one through ``query_batch``).
 
 Prints a summary and writes all of it to ``--out`` as JSON. The device
 numbers read "not measured" where the profiler saw no device activity.
@@ -31,21 +39,40 @@ from pathlib import Path
 
 import numpy as np
 
-N, M, P, D, C = 100_000, 1536, 100, 12, 256
-K_TOP, NPROBE, N_BATCH = 10, 5, 64
+K_TOP = 10
 TOP_KERNELS = 12
+#: Per configuration: partitions, divisions, clusters, query batch,
+#: nprobe, serving layout (None: the database's own, the layout policy's
+#: pick) and rerank depth (profiled with the layout).
+CONFIGS = {
+    "headline": dict(p=100, d=12, c=256, batch=64, nprobe=5, layout=None,
+                     rerank=None),
+    "sift": dict(p=1024, d=8, c=256, batch=1000, nprobe=10,
+                 layout="bucketed", rerank=100),
+}
 
 
-def make_data(seed: int):
+def make_data(config: str, seed: int):
     """``chip_smoke.py``'s corpus and queries."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, M), dtype=np.float32)
+    if config == "sift":
+        from flechasdb_tpu_torch import synth
+        return synth.gmm_pair(rng, 1_000_000, 1000, 128, n_clusters=256,
+                              intrinsic=12)
+    n, m, batch = 100_000, 1536, CONFIGS[config]["batch"]
+    x = rng.standard_normal((n, m), dtype=np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
-    q = x[rng.choice(N, N_BATCH + 8, replace=False)]
+    q = x[rng.choice(n, batch + 8, replace=False)]
     return x, q + 0.02 * rng.standard_normal(q.shape, dtype=np.float32)
 
 
-def build_phases(torch, ft, x, seed: int) -> dict:
+def builder(ft, x, cfg: dict, seed: int):
+    return (ft.DatabaseBuilder(x, device="cuda").with_partitions(cfg["p"])
+            .with_divisions(cfg["d"]).with_clusters(cfg["c"])
+            .with_seed(seed))
+
+
+def build_phases(torch, ft, x, cfg: dict, seed: int) -> dict:
     """Milliseconds a phase, from a synchronizing event handler."""
     from flechasdb_tpu_torch.events import ClusterEvent
     stamps = []                      # (stage, event name, seconds)
@@ -65,9 +92,7 @@ def build_phases(torch, ft, x, seed: int) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (ft.DatabaseBuilder(x, device="cuda").with_partitions(P)
-     .with_divisions(D).with_clusters(C).with_seed(seed)
-     .build_with_events(handler))
+    builder(ft, x, cfg, seed).build_with_events(handler)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
 
@@ -133,9 +158,14 @@ def device_profile(torch, fn) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="headline")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--out", default="chiprun_out/profile_slice.json")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    cfg = CONFIGS[args.config]
+    out = Path(args.out or ("chiprun_out/profile_slice.json"
+                            if args.config == "headline"
+                            else f"chiprun_out/profile_{args.config}.json"))
 
     import torch
     import flechasdb_tpu_torch as ft
@@ -146,26 +176,40 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    x, q = make_data(args.seed)
+    x, q = make_data(args.config, args.seed)
+    batch, one = q[:cfg["batch"]], q[-1]
+    kw = dict(k=K_TOP, nprobe=cfg["nprobe"])
 
     def build():
-        return (ft.DatabaseBuilder(x, device="cuda").with_partitions(P)
-                .with_divisions(D).with_clusters(C).with_seed(args.seed)
-                .build())
+        return builder(ft, x, cfg, args.seed).build()
 
     db = build()                       # warm-up; builds the kernels
-    db.query_batch(q[:N_BATCH], k=K_TOP, nprobe=NPROBE)
-    db.query(q[N_BATCH], k=K_TOP, nprobe=NPROBE)
+    queries = {"query_batch_device": lambda: db.query_batch(batch, **kw),
+               "query_one_device": lambda: db.query(one, **kw)}
+    if cfg["layout"]:
+        # Served from a DeviceIndex of this layout, as the JAX package's
+        # sweep serves the SIFT shape; query_batch keeps the policy's pick.
+        from flechasdb_tpu_torch.serving import DeviceIndex
+        index = DeviceIndex(db.partition_centroids, db.codebooks,
+                            db.codes.astype(np.int32), db.partition_indices,
+                            layout=cfg["layout"], metric=db.metric,
+                            device="cuda")
+        orig = db._device_originals()
+        queries = {
+            "query_batch_device": lambda: index.query(batch, **kw),
+            "query_one_device": lambda: index.query(one[None], **kw),
+            "query_batch_rerank_device": lambda: index.query_rerank(
+                batch, orig, rerank=cfg["rerank"], **kw),
+            f"query_batch_{db._device_state().layout}_policy_device":
+                lambda: db.query_batch(batch, **kw)}
+    for fn in queries.values():        # warm-up
+        fn()
     report = {"card": card, "torch": torch.__version__,
-              "build": build_phases(torch, ft, x, args.seed),
-              "build_device": device_profile(torch, build),
-              "query_batch_device": device_profile(
-                  torch, lambda: db.query_batch(q[:N_BATCH], k=K_TOP,
-                                                nprobe=NPROBE)),
-              "query_one_device": device_profile(
-                  torch, lambda: db.query(q[N_BATCH], k=K_TOP,
-                                          nprobe=NPROBE))}
-    out = Path(args.out)
+              "config": args.config,
+              "build": build_phases(torch, ft, x, cfg, args.seed),
+              "build_device": device_profile(torch, build)}
+    for key, fn in queries.items():
+        report[key] = device_profile(torch, fn)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     b = report["build"]
@@ -173,7 +217,7 @@ def main() -> None:
           f"Lloyd rounds {b['lloyd_rounds']}", flush=True)
     for name, ms in sorted(b["phases_ms"].items(), key=lambda kv: -kv[1]):
         print(f"  {name:24s} {ms:9.1f} ms", flush=True)
-    for key in ("build_device", "query_batch_device", "query_one_device"):
+    for key in ["build_device", *queries]:
         r = report[key]
         print(f"{key}: wall {r['wall_ms_under_profiler']:.3f} ms, device "
               f"{r['device_ms']}, busy share {r['busy_share']}", flush=True)

@@ -1,5 +1,8 @@
 """K-A, the ADC bucket scan of the PyTorch port
-(``flechasdb_tpu_torch.ops.scan``), against the JAX package.
+(``flechasdb_tpu_torch.ops.scan``), against the JAX package, and
+``adc_lookup``, the same sum over pre-gathered codes, against the JAX
+package's ``pallas_scan.adc_lookup(..., interpret=True)`` (which runs
+``_lookup_kernel``) at the shapes of ``tests/test_bucketed.py:77-187``.
 
 The same numpy inputs go through the port's plain version and through
 the JAX package's ``bucket_scan(impl="gather")`` (the XLA route its own
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from flechasdb_tpu.ops.bucketed import bucket_scan
+from flechasdb_tpu.ops.pallas_scan import adc_lookup as jax_lookup
 from flechasdb_tpu.ops.pallas_scan import adc_lookup_indexed as jax_indexed
 from flechasdb_tpu_torch import _kernels
 from flechasdb_tpu_torch.ops import scan
@@ -171,6 +175,77 @@ def test_wrapper_rejects_bad_arguments(bad, err):
     with pytest.raises(err):
         scan.adc_lookup_indexed(t["bcodes"], t["ftab"], t["bidx"],
                                 t["lengths"], d=d)
+
+
+# (g, d, c, l): test_bucketed.py:99 (C below and above one vreg), :196
+# (L over several tiles), :213 and :228 (ragged cell groups), :239 (D=8,
+# C=256), C=200 with D not a multiple of 4, and the roofline's SIFT shape.
+_LOOKUP = [(6, 4, 25, 256), (6, 4, 300, 256), (2, 4, 64, 4352),
+           (13, 4, 64, 256), (21, 4, 64, 256), (10, 8, 256, 384),
+           (9, 5, 200, 256), (64, 8, 256, 1280)]
+
+
+def _lookup_case(g, d, c, l, pack):
+    rng = np.random.default_rng(g * d + c + l)
+    raw = rng.integers(0, c, (g, d, l)).astype(np.int32)
+    ftab = rng.standard_normal((g, d * c)).astype(np.float32)
+    return (_pack(raw, d) if pack else raw), ftab, raw
+
+
+@pytest.mark.parametrize("shape,pack", [(s, p) for s in _LOOKUP
+                                        for p in (False, True)
+                                        if not (p and s[2] > 256)])
+def test_adc_lookup_plain_matches_jax_lookup_kernel(shape, pack):
+    g, d, c, l = shape
+    codes, ftab, raw = _lookup_case(g, d, c, l, pack)
+    got = scan.adc_lookup(torch.from_numpy(codes), torch.from_numpy(ftab),
+                          d=d).numpy()
+    want = np.asarray(jax_lookup(jnp.asarray(codes), jnp.asarray(ftab),
+                                 d=d, interpret=True))
+    _assert_close(got, want)
+    ref = ftab.reshape(g, d, c)[np.arange(g)[:, None, None],
+                                np.arange(d)[None, :, None], raw].sum(1)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        got, scan.adc_lookup_plain(torch.from_numpy(codes),
+                                   torch.from_numpy(ftab), d=d).numpy())
+
+
+def test_adc_lookup_checks_and_counts_nothing_on_cpu():
+    codes, ftab, _ = _lookup_case(3, 8, 16, 256, False)
+    before = dict(_kernels.LAUNCHES)
+    out = scan.adc_lookup(torch.from_numpy(codes), torch.from_numpy(ftab))
+    assert out.shape == (3, 256) and _kernels.LAUNCHES == before
+    # L not a multiple of 128 and code rows that fit no D: the JAX
+    # package's two checks, with its error type.
+    for bad, kw in [(codes[:, :, :200], {}), (codes[:, :3], {"d": 8})]:
+        a = np.ascontiguousarray(bad)
+        with pytest.raises(ValueError) as got:
+            scan.adc_lookup(torch.from_numpy(a), torch.from_numpy(ftab), **kw)
+        with pytest.raises(ValueError) as want:
+            jax_lookup(jnp.asarray(a), jnp.asarray(ftab), interpret=True,
+                       **kw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError):            # a table for every cell
+        scan.adc_lookup(torch.from_numpy(codes[:2].copy()),
+                        torch.from_numpy(ftab))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d,c,l,pack", [(640, 8, 256, 1280, False),
+                                          (640, 8, 256, 1280, True),
+                                          (9, 5, 200, 256, False),
+                                          (37, 12, 256, 2048, True)])
+def test_adc_lookup_matches_plain_on_card(cuda, g, d, c, l, pack):
+    codes, ftab, _ = _lookup_case(g, d, c, l, pack)
+    ct, ft = torch.from_numpy(codes).to(cuda), torch.from_numpy(ftab).to(cuda)
+    before = dict(_kernels.LAUNCHES)
+    got = scan.adc_lookup(ct, ft, d=d)
+    assert _kernels.LAUNCHES["adc_lookup"] == before["adc_lookup"] + 1
+    assert _kernels.LAUNCHES["adc_scan"] == before["adc_scan"]
+    want = scan.adc_lookup_plain(ct, ft, d=d)
+    torch.cuda.synchronize()
+    _assert_close(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda
