@@ -27,8 +27,9 @@
 // 16-byte broadcast that feeds 4*R FMAs. The centroids of all g divisions
 // (128 floats a centroid index) stream through shared memory in chunks of
 // 128 centroid indices (64 KB, opted in above 48 KB), so any K fits. Full
-// FP32 FMAs, no TF32 or bf16, in the same order as K-B (increasing m), so
-// the distances are K-B's bit for bit. Each thread walks k in increasing
+// FP32 FMAs, no TF32 or bf16, in increasing m; K-B's 3xTF32 tensor-core
+// product rounds differently, so the two assignments agree up to
+// near-ties, not bit for bit. Each thread walks k in increasing
 // order with a strict `<` over every chunk, so the first minimum wins with
 // no merge. Pad divisions are loaded by no one and written nowhere.
 //

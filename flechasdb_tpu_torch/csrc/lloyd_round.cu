@@ -1,7 +1,7 @@
 // K-B: fused Lloyd round (assignment + cluster sums) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_round_kernel` (flechasdb_tpu/ops/pallas_kmeans.py,
-// reached by `lloyd_round`). For every batch entry b and row i:
+// Replaces the TPU kernel `_round_kernel` (flechasdb_tpu/ops/pallas_kmeans.py
+// :36, reached by `lloyd_round`). For every batch entry b and row i:
 //
 //     idx[b, i]  = first argmin_k (cc[b, k] - 2 x[b, i] . c[b, k])
 //     sums[b, k] = sum of x[b, i] over the rows with idx[b, i] == k
@@ -10,21 +10,53 @@
 // with cc[b, k] = |c[b, k]|^2 given by the caller. No |x|^2 term and no clamp:
 // the argmin does not need them.
 //
-// What bounds it on the H100: arithmetic. The assignment is 2*N*K*M flops
-// over N*M*4 bytes of x, about K flops a byte (100 to 256 on the build's
-// shapes), above the card's fp32 ridge. It runs in full FP32 on the CUDA
-// cores, not TF32 or bf16, so the argmin ranks as an f32 product does. The
-// design tiles x . c^T as a register-blocked SGEMM: 128 rows x 64 centroids
-// a block of 128 threads, 8 x 8 a thread, M streamed through shared memory
-// in chunks of 16 (so any M fits) and read back with 16-byte loads, four of
-// them for 64 FMAs, so the FMA units and not shared-memory loads set the
-// pace. Each finished centroid tile folds into a running (min, first
-// argmin) per row: the N x K distance matrix never exists. Within a thread
-// centroids arrive in increasing k and the update is a strict `<`; across
-// threads the merge takes the smaller k on equal distances, so the first
-// minimum wins as in `jnp.argmin`. The sums are a second, bytes-bound launch
-// of f32 atomics (not bit-reproducible from run to run: their order
-// varies); the counts are exact.
+// What bounds it on the H100: the assignment is 2*N*K*M flops over N*M*4
+// bytes of x, K/2 flops a byte (50 to 512 on the build's shapes). At the
+// dense TF32 tensor-core rate, 494.7 TFLOP/s, against 3.35 TB/s, the flops
+// bind above K = 295 and the bytes of x below. It runs as 3xTF32 on the
+// tensor cores: each f32 operand v is split once, as its fragment is
+// loaded, into hi, v rounded to tf32, and lo = v - hi, and x . c
+// accumulates lo.hi, hi.lo, then hi.hi in f32, the order of CUTLASS's
+// OpMultiplyAddFastF32. That is the structure of the TPU kernel's
+// hand-split bf16x3 product with about 2^-21 relative error where bf16x3
+// has 2^-16, and it ignores the process's TF32 flags. The three passes are
+// the route's cost, not the function's: the kernel issues three times the
+// flops its bound counts. The split is integer arithmetic (split_tf32):
+// cvt.rna.tf32.f32 compiles to a compare-and-select sequence, with which
+// the kernel took 8-19% longer on an H100.
+//
+// Design: warp-level mma.sync.m16n8k8 (tf32 in, f32 accumulate). A block
+// of 8 warps takes 128 rows x 128 centroids (each warp 32 x 64: 2 x 8
+// tiles, 64 f32 accumulators a thread) and walks M in chunks of 32 through
+// a 3-stage ring of cp.async copies in dynamic shared memory (110.6 KB,
+// opted in above 48 KB; two blocks fit an SM), so the loads of the next
+// chunks overlap the products of this one behind one __syncthreads a
+// chunk. The ring runs across centroid tiles too: the next tile's first
+// chunks arrive during the argmin epilogue. Tile rows are padded to 36
+// floats, so each fragment load (8 rows x 4 columns a warp) hits 32
+// distinct banks. Copies past N, K or M write zeros (cp.async's zero
+// fill), which pads M to a multiple of the chunk; an 8-wide step wholly
+// past M is skipped. VEC copies 16 bytes at a time (M % 4 == 0 and
+// aligned rows), otherwise 4, so any M fits.
+//
+// Argmin: after a centroid tile's last chunk each thread folds cc[k] -
+// 2 acc into a running (min, k) for each of its 4 rows, k increasing, with
+// a strict `<` (padded centroids count as +inf). The 4 lanes of a quad
+// that share a row merge by shuffles, then the 2 warps that split the
+// centroids merge through shared memory; both merges take the smaller k
+// on equal distances, so the first minimum wins as in `jnp.argmin`.
+// Duplicated centroids give bit-equal distances (equal inputs, the same
+// MMA order), so the first of them wins. The N x K distance matrix never
+// exists.
+//
+// The sums are a second, bytes-bound launch of f32 atomics (not
+// bit-reproducible from run to run: their order varies); the counts are
+// exact.
+//
+// ptxas (nvcc 12.9, sm_90a, -O3): assign_kernel 128 registers and no
+// spills with 16-byte copies; the 4-byte-copy variant (M % 4 != 0 or
+// unaligned rows, off the build's main shapes) 128 registers and 24 bytes
+// of spill stores. Two blocks of 256 threads fit an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,138 +64,262 @@
 
 namespace {
 
-constexpr int kBM = 128;  // rows a block
-constexpr int kBN = 64;   // centroids a tile
-constexpr int kBK = 16;   // M a shared-memory chunk
-constexpr int kTM = 8;    // rows a thread
-constexpr int kTN = 8;    // centroids a thread
-constexpr int kTX = kBN / kTN;        // threads along centroids
-constexpr int kTY = kBM / kTM;        // threads along rows
-constexpr int kThreads = kTX * kTY;
-constexpr int kPad = 4;   // keeps tile rows 16-byte aligned
+constexpr int kBM = 128;               // rows a block
+constexpr int kBN = 128;               // centroids a tile
+constexpr int kBK = 32;                // M a pipeline stage
+constexpr int kLd = kBK + 4;           // tile row stride (floats)
+constexpr int kStages = 3;
+constexpr int kWarpsM = 4;             // warps along rows
+constexpr int kWarpsN = 2;             // warps along centroids
+constexpr int kWM = kBM / kWarpsM;     // rows a warp
+constexpr int kWN = kBN / kWarpsN;     // centroids a warp
+constexpr int kMT = kWM / 16;          // m16 tiles a warp
+constexpr int kNT = kWN / 8;           // n8 tiles a warp
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kStageFloats = (kBM + kBN) * kLd;
+constexpr int kSmem = kStages * kStageFloats * (int)sizeof(float);
 constexpr int kScatterThreads = 256;
 constexpr int kScatterRows = 32;
+static_assert(kWarpsN == 2, "the cross-warp merge pairs two warps");
+static_assert(kBM * kBK % (4 * kThreads) == 0 &&
+                  kBN * kBK % (4 * kThreads) == 0,
+              "a chunk splits evenly over the threads");
 
-// Copies rows [r0, r0 + ROWS) x columns [m0, m0 + kBK) of a row-major
-// [n, M] matrix into tile[kBK][ROWS + kPad], transposed, with zeros past n
-// or M. VEC: M % 4 == 0 and 16-byte-aligned rows, so each float4 lies
-// wholly inside M or wholly past it.
-template <int ROWS, bool VEC>
-__device__ __forceinline__ void load_tile(float (*tile)[ROWS + kPad],
-                                          const float* __restrict__ src,
-                                          int r0, int n, int m0, int M) {
-  if (VEC) {
-    for (int e = threadIdx.x; e < ROWS * kBK / 4; e += kThreads) {
-      const int r = e / (kBK / 4), q = (e % (kBK / 4)) * 4;
-      const int gr = r0 + r, gm = m0 + q;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < n && gm < M) {
-        v = *reinterpret_cast<const float4*>(src + (size_t)gr * M + gm);
-      }
-      tile[q][r] = v.x;
-      tile[q + 1][r] = v.y;
-      tile[q + 2][r] = v.z;
-      tile[q + 3][r] = v.w;
-    }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies BYTES (16 or 4) from global to shared memory without waiting;
+// writes zeros instead when !in.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in) {
+  const int n = in ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
   } else {
-    for (int e = threadIdx.x; e < ROWS * kBK; e += kThreads) {
-      const int r = e / kBK, mm = e % kBK;
-      const int gr = r0 + r, gm = m0 + mm;
-      tile[mm][r] = (gr < n && gm < M) ? src[(size_t)gr * M + gm] : 0.f;
-    }
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
   }
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// v = hi + lo + e with |e| <= 2^-21 |v|, in three integer and float
+// instructions. The tensor cores read a tf32 operand's 19 high bits and
+// ignore the 13 low ones, so hi goes in as v's bits plus half a tf32 ulp
+// (v rounded to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds); its low bits are cleared only to form v - hi, exact in f32,
+// which goes in as lo and is read truncated.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) + 0x1000u;
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u));
+}
+
+// d += a b: a 16 x 8 tf32 (row major), b 8 x 8 tf32 (column major), d
+// 16 x 8 f32, in the PTX fragment layouts of m16n8k8.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Starts copying rows [r0, r0 + ROWS) x columns [m0, m0 + kBK) of a
+// row-major [n, M] matrix into tile[ROWS][kLd], zeros past n or M. VEC:
+// M % 4 == 0 and 16-byte-aligned rows, so each 16-byte copy lies wholly
+// inside M or wholly past it.
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void load_chunk(float* tile,
+                                           const float* __restrict__ src,
+                                           int r0, int n, int m0, int M) {
+  constexpr int W = VEC ? 4 : 1;  // floats a copy
+  constexpr int PER_ROW = kBK / W;
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / PER_ROW, q = (e % PER_ROW) * W;
+    const int gr = r0 + r, gm = m0 + q;
+    const bool in = gr < n && gm < M;
+    cp_async<4 * W>(tile + r * kLd + q, in ? src + (size_t)gr * M + gm : src,
+                    in);
+  }
+}
+
+// Starts step `it` of the ring: chunk it % n_m of centroid tile it / n_m,
+// x's and c's, into slot it % kStages. Commits a group even past the last
+// step, so that waiting for all but kStages - 2 groups always means that
+// the oldest step has landed.
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_step(float* smem, const float* xb,
+                                          const float* cb, int it, int n_it,
+                                          int n_m, int row0, int N, int K,
+                                          int M) {
+  if (it < n_it) {
+    float* st = smem + (it % kStages) * kStageFloats;
+    const int m0 = (it % n_m) * kBK;
+    load_chunk<kBM, VEC>(st, xb, row0, N, m0, M);
+    load_chunk<kBN, VEC>(st + kBM * kLd, cb, (it / n_m) * kBN, K, m0, M);
+  }
+  cp_async_commit();
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
               const float* __restrict__ cc, int32_t* __restrict__ idx,
               int N, int K, int M) {
-  __shared__ __align__(16) float xs[kBK][kBM + kPad];
-  __shared__ __align__(16) float cs[kBK][kBN + kPad];
+  extern __shared__ __align__(16) float smem[];  // kStages x [x | c] tiles
+  __shared__ float merge_v[kBM];
+  __shared__ int merge_k[kBM];
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kBM;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int g = lane / 4, t = lane % 4;  // fragment row, column
   const float* xb = x + (size_t)b * N * M;
   const float* cb = c + (size_t)b * K * M;
   const float* ccb = cc + (size_t)b * K;
 
-  float best[kTM];
-  int best_k[kTM];
+  const int n_m = (M + kBK - 1) / kBK;               // chunks a tile
+  const int n_it = n_m * ((K + kBN - 1) / kBN);      // (tile, chunk) steps
+
+  float acc[kMT][kNT][4];
+  float best[kMT][2];
+  int best_k[kMT][2];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    best[i] = INFINITY;
-    best_k[i] = 0;
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      best[i][r] = INFINITY;
+      best_k[i][r] = 0;
+    }
   }
 
-  for (int k0 = 0; k0 < K; k0 += kBN) {
-    float acc[kTM][kTN];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_step<VEC>(smem, xb, cb, s, n_it, n_m, row0, N, K, M);
+  }
 
-    for (int m0 = 0; m0 < M; m0 += kBK) {
-      load_tile<kBM, VEC>(xs, xb, row0, N, m0, M);
-      load_tile<kBN, VEC>(cs, cb, k0, K, m0, M);
-      __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step it has landed; the slot of step it - 1 is free
+    load_step<VEC>(smem, xb, cb, it + kStages - 1, n_it, n_m, row0, N, K, M);
+
+    const float* st = smem + (it % kStages) * kStageFloats;
+    const float* xs = st + (wm * kWM + g) * kLd + t;
+    const float* cs = st + (kBM + wn * kWN + g) * kLd + t;
+    const int m0 = (it % n_m) * kBK;
 #pragma unroll
-      for (int mm = 0; mm < kBK; ++mm) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&xs[mm][ty * kTM]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&xs[mm][ty * kTM + 4]);
-        const float4 v0 = *reinterpret_cast<const float4*>(&cs[mm][tx * kTN]);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(&cs[mm][tx * kTN + 4]);
-        const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float v[kTN] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    for (int kk = 0; kk < kBK; kk += 8) {
+      if (m0 + kk < M) {  // block-uniform
+        uint32_t ah[kMT][4], al[kMT][4];
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
+        for (int i = 0; i < kMT; ++i) {
+          const float* p = xs + i * 16 * kLd + kk;
+          split_tf32(p[0], ah[i][0], al[i][0]);
+          split_tf32(p[8 * kLd], ah[i][1], al[i][1]);
+          split_tf32(p[4], ah[i][2], al[i][2]);
+          split_tf32(p[8 * kLd + 4], ah[i][3], al[i][3]);
+        }
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+        for (int j = 0; j < kNT; ++j) {
+          const float* q = cs + j * 8 * kLd + kk;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(q[0], bh0, bl0);
+          split_tf32(q[4], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < kMT; ++i) {
+            mma_tf32(acc[i][j], al[i], bh0, bh1);
+            mma_tf32(acc[i][j], ah[i], bl0, bl1);
+            mma_tf32(acc[i][j], ah[i], bh0, bh1);
+          }
         }
       }
-      __syncthreads();
     }
 
-    // Fold this centroid tile into the running minimum, k increasing.
+    if (it % n_m == n_m - 1) {  // the centroid tile is complete: fold it
+      const int k0 = (it / n_m) * kBN + wn * kWN + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int k = k0 + tx * kTN + j;
-      if (k < K) {
-        const float ck = ccb[k];
+      for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float d = ck - 2.f * acc[i][j];
-          if (d < best[i]) {
-            best[i] = d;
-            best_k[i] = k;
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + j * 8 + h;
+          const float ck = k < K ? __ldg(ccb + k) : INFINITY;
+#pragma unroll
+          for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float d = ck - 2.f * acc[i][j][2 * r + h];
+              if (d < best[i][r]) {
+                best[i][r] = d;
+                best_k[i][r] = k;
+              }
+              acc[i][j][2 * r + h] = 0.f;
+            }
           }
         }
       }
     }
   }
 
-  // Merge the kTX threads that share a row (neighbouring lanes): smaller
+  // Merge the quad's lanes, then the two warps of a row band: smaller
   // distance, then smaller k.
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float v = best[i];
-    int k = best_k[i];
+  for (int i = 0; i < kMT; ++i) {
 #pragma unroll
-    for (int off = kTX / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off, kTX);
-      const int ok = __shfl_xor_sync(0xffffffffu, k, off, kTX);
-      if (ov < v || (ov == v && ok < k)) {
-        v = ov;
-        k = ok;
+    for (int r = 0; r < 2; ++r) {
+      float v = best[i][r];
+      int k = best_k[i][r];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int ok = __shfl_xor_sync(0xffffffffu, k, off);
+        if (ov < v || (ov == v && ok < k)) {
+          v = ov;
+          k = ok;
+        }
+      }
+      best[i][r] = v;
+      best_k[i][r] = k;
+      const int row = wm * kWM + i * 16 + r * 8 + g;
+      if (wn == 1 && t == 0) {
+        merge_v[row] = v;
+        merge_k[row] = k;
       }
     }
-    const int r = row0 + ty * kTM + i;
-    if (tx == 0 && r < N) idx[(size_t)b * N + r] = k;
+  }
+  __syncthreads();
+  if (wn == 0 && t == 0) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wm * kWM + i * 16 + r * 8 + g;
+        const float ov = merge_v[row];
+        const int ok = merge_k[row];
+        int k = best_k[i][r];
+        if (ov < best[i][r] || (ov == best[i][r] && ok < k)) k = ok;
+        if (row0 + row < N) idx[(size_t)b * N + row0 + row] = k;
+      }
+    }
   }
 }
 
@@ -185,6 +341,21 @@ scatter_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
   }
 }
 
+template <bool VEC>
+cudaError_t launch_assign(const float* x, const float* c, const float* cc,
+                          int32_t* idx, int B, int N, int K, int M,
+                          cudaStream_t s) {
+  // Set at every launch on purpose: the attribute belongs to the current
+  // device, which may differ from the last launch's, and the host call is
+  // small beside a round.
+  const cudaError_t err = cudaFuncSetAttribute(
+      assign_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBM - 1) / kBM, B);
+  assign_kernel<VEC><<<grid, kThreads, kSmem, s>>>(x, c, cc, idx, N, K, M);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B, N, M] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32,
@@ -201,17 +372,12 @@ extern "C" int fdb_lloyd_round(const void* x, const void* c, const void* cc,
   err = cudaMemsetAsync(counts, 0, (size_t)B * K * sizeof(float), s);
   if (err != cudaSuccess) return err;
 
-  const dim3 agrid((N + kBM - 1) / kBM, B);
   const auto* xf = static_cast<const float*>(x);
   const auto* cf = static_cast<const float*>(c);
   const auto* ccf = static_cast<const float*>(cc);
   auto* idxi = static_cast<int32_t*>(idx);
-  if (vec) {
-    assign_kernel<true><<<agrid, kThreads, 0, s>>>(xf, cf, ccf, idxi, N, K, M);
-  } else {
-    assign_kernel<false><<<agrid, kThreads, 0, s>>>(xf, cf, ccf, idxi, N, K, M);
-  }
-  err = cudaGetLastError();
+  err = vec ? launch_assign<true>(xf, cf, ccf, idxi, B, N, K, M, s)
+            : launch_assign<false>(xf, cf, ccf, idxi, B, N, K, M, s);
   if (err != cudaSuccess) return err;
 
   const dim3 sgrid((N + kScatterRows - 1) / kScatterRows, B);

@@ -9,17 +9,20 @@ their plain versions.
 ``‖c_k‖² − 2 x_i·c_k`` (no ``‖x‖²`` term, no clamp) and ``sums``/``counts``
 are the member sums and sizes under that fresh assignment.
 
-On a CUDA tensor it launches the kernel (full FP32, so it ranks as an f32
-product does); on a CPU tensor it runs :func:`lloyd_round_plain`. The
-source note on what bounds the kernel and how its design answers is at
-the top of ``csrc/lloyd_round.cu``.
+On a CUDA tensor it launches the kernel, whose product is 3xTF32 on the
+tensor cores (tf32 hi and lo parts of each f32 operand, lo·hi + hi·lo +
+hi·hi accumulated in f32: about 2⁻²¹ relative error, whatever the
+process's TF32 flags), so it ranks as an f32 product does up to
+near-ties; on a CPU tensor it runs :func:`lloyd_round_plain`. The source
+note on what bounds the kernel and how its design answers is at the top
+of ``csrc/lloyd_round.cu``.
 
 :func:`lloyd_round_grouped` keeps the contract of the JAX package's
 ``pallas_kmeans.lloyd_round_grouped``: ``xg [G, N, 128]`` from
 :func:`regroup_divisions` and ``centroids [B, K, m]`` (``128 % m == 0``)
 → the same three outputs as :func:`lloyd_round` on the ungrouped data.
-On a CUDA tensor it launches K-C (m in 8, 16, 32, 64), whose distances
-are K-B's bit for bit; on a CPU tensor it runs
+On a CUDA tensor it launches K-C (m in 8, 16, 32, 64), whose f32 FMAs
+agree with K-B's 3xTF32 product up to near-ties; on a CPU tensor it runs
 :func:`lloyd_round_grouped_plain`.
 """
 

@@ -11,9 +11,9 @@ atol 1e-3 (the JAX test's own bound). ``regroup_divisions`` is equal to
 the JAX one.
 
 The CUDA kernel runs only on the card: those tests carry the ``cuda``
-marker and skip here. On the card, K-C's indices must equal K-B's on the
-ungrouped data exactly (the same FP32 FMAs in the same order), and agree
-with the cuBLAS plain version up to near-ties.
+marker and skip here. On the card, K-C's indices must agree with K-B's
+on the ungrouped data and with the cuBLAS plain version up to near-ties
+(K-C's f32 FMAs and K-B's 3xTF32 tensor-core product round differently).
 """
 
 import types
@@ -226,7 +226,10 @@ def test_kernel_matches_plain_and_k_b_on_card(cuda, b, n, k, m, dup):
     assert _kernels.LAUNCHES["lloyd_grouped"] == before + 1
     ref_idx = lloyd.lloyd_round_grouped_plain(xg, ct)[0].cpu().numpy()
     assert not ((idx != ref_idx) & ~_near_tie_rows(x, c, idx, ref_idx)).any()
-    np.testing.assert_array_equal(idx, lloyd.lloyd_round(xt, ct)[0].cpu())
+    # K-B ranks with a 3xTF32 tensor-core product and K-C with f32 FMAs:
+    # the two round differently, so they agree up to near-ties.
+    kb_idx = lloyd.lloyd_round(xt, ct)[0].cpu().numpy()
+    assert not ((idx != kb_idx) & ~_near_tie_rows(x, c, idx, kb_idx)).any()
     _onehot_check(x, idx, sums, counts, k)
     if dup:
         assert not np.isin(idx, [7, k - 1]).any()

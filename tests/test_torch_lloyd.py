@@ -7,8 +7,9 @@ JAX package's ``pallas_kmeans.lloyd_round(..., interpret=True)`` on the
 shapes of ``tests/test_kmeans.py:297``. Tolerances:
 
 * indices equal, except at rows whose two candidate distances lie within
-  1e-5 of the row's distance scale (the JAX kernel's bf16x3 product and
-  an f32 product may rank such near-ties either way);
+  1e-5 of the row's distance scale (the JAX kernel's bf16x3 product, the
+  card kernel's 3xTF32 product and an f32 product may rank such near-ties
+  either way);
 * sums within rtol 1e-4, atol 1e-3 of a float64 one-hot sum (the JAX
   test's own bound); counts exact;
 * distances within rel 1e-4, abs 1e-5.
@@ -74,10 +75,12 @@ def _check_round(x, c, idx, sums, counts, ref_idx):
         np.testing.assert_array_equal(counts[bb], oh.sum(1))
 
 
-@pytest.mark.parametrize("b,n,m,k,tile", [(1, 1000, 24, 16, 256),
-                                          (3, 517, 12, 7, 128),
-                                          (1, 300, 8, 1280, 128),
-                                          (2, 129, 5, 1, 128)])
+ROUND_SHAPES = [(1, 1000, 24, 16), (3, 517, 12, 7), (1, 300, 8, 1280),
+                (2, 129, 5, 1)]
+
+
+@pytest.mark.parametrize("b,n,m,k,tile", [s + (t,) for s, t in zip(
+    ROUND_SHAPES, (256, 128, 128, 128))])
 def test_plain_round_matches_jax_kernel(b, n, m, k, tile):
     rng = np.random.default_rng(n + k)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
@@ -90,6 +93,74 @@ def test_plain_round_matches_jax_kernel(b, n, m, k, tile):
     if (idx == ref_idx).all():
         np.testing.assert_allclose(sums, ref_sums, rtol=1e-4, atol=1e-3)
         np.testing.assert_array_equal(counts, ref_counts)
+
+
+def _tf32(v, nearest=True):
+    """f32 cut to tf32 (10 mantissa bits) by bit masking: to nearest, ties
+    away from zero (half of the dropped 13 bits' range added to the
+    magnitude bits, as ``cvt.rna.tf32.f32`` rounds), or truncated."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_distances(x, c, passes=3):
+    """K-B's distances on the card, emulated: each operand split into hi,
+    its tf32 to nearest, and lo = v - hi, which the tensor cores read
+    truncated to tf32; x·c as lo·hi + hi·lo + hi·hi in f32 (or hi·hi
+    alone, ``passes=1``), then ‖c‖² − 2 x·c in f32."""
+    xh, ch = _tf32(x), _tf32(c)
+    xl, cl = _tf32(x - xh, nearest=False), _tf32(c - ch, nearest=False)
+    ch, cl = ch.transpose(0, 2, 1), cl.transpose(0, 2, 1)
+    dot = xh @ ch
+    if passes == 3:
+        dot = (xl @ ch + xh @ cl) + dot
+    cc = (c * c).sum(-1, dtype=np.float32)
+    return cc[:, None, :] - np.float32(2) * dot
+
+
+def test_tf32_rounding_and_split():
+    one = np.float32(1)
+    ulp = np.float32(2.0 ** -10)                  # tf32's spacing at 1
+    v = np.array([one + ulp * 0.49, one + ulp * 0.5, one + ulp * 0.51,
+                  -(one + ulp * 0.5), one + ulp * 1.5], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(v), np.array([one, one + ulp, one + ulp, -(one + ulp),
+                            one + 2 * ulp], np.float32))
+    np.testing.assert_array_equal(
+        _tf32(v, nearest=False), np.array([one, one, one, -one, one + ulp],
+                                          np.float32))
+    r = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi = _tf32(r)
+    assert ((hi.view(np.uint32) & 0x1FFF) == 0).all()
+    assert (np.abs(r - hi) <= np.abs(r) * 2.0 ** -11).all()
+    lo = _tf32(r - hi, nearest=False)                # the split's residue
+    assert (np.abs(r - hi - lo) <= np.abs(r) * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("b,n,m,k", ROUND_SHAPES + [(1, 5000, 1536, 100),
+                                                    (12, 3000, 128, 256),
+                                                    (1, 2000, 96, 1024)])
+def test_three_tf32_product_ranks_as_float64(b, n, m, k):
+    """The card kernel's 3xTF32 product, emulated on the CPU, picks the
+    float64 argmin up to TIE_REL near-ties, and its distances err less
+    than a tenth of TIE_REL of the row's scale, where a single tf32 pass
+    does not."""
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((b, n, m)).astype(np.float32)
+    c = (x[:, rng.integers(0, n, k)] if k <= n else
+         rng.standard_normal((b, k, m)).astype(np.float32)).copy()
+    d = _tf32_distances(x, c)
+    idx = d.argmin(-1)
+    x64, c64 = x.astype(np.float64), c.astype(np.float64)
+    d64 = (c64 * c64).sum(-1)[:, None, :] - 2 * x64 @ c64.transpose(0, 2, 1)
+    ref = d64.argmin(-1)
+    assert not ((idx != ref) & ~_near_tie_rows(x, c, idx, ref)).any()
+    scale = (x64 * x64).sum(-1) + (c64 * c64).sum(-1).max(-1, keepdims=True)
+    assert (np.abs(d - d64).max(-1) <= 0.1 * TIE_REL * scale).all()
+    one_pass = _tf32_distances(x, c, passes=1)
+    assert (np.abs(one_pass - d64).max(-1) > 0.1 * TIE_REL * scale).any()
 
 
 def test_plain_round_duplicated_centroids_take_the_first():
@@ -271,7 +342,10 @@ def test_fit_events_follow_the_jax_grammar():
                                          (12, 3000, 256, 128, False),
                                          (1, 2000, 1024, 96, False),
                                          (3, 517, 7, 12, False),
-                                         (12, 3000, 256, 128, True)])
+                                         (12, 3000, 256, 128, True),
+                                         (2, 129, 1, 5, False),
+                                         (1, 1000, 16, 24, False),
+                                         (2, 4133, 300, 128, False)])
 def test_kernel_matches_plain_on_card(cuda, b, n, k, m, dup):
     rng = np.random.default_rng(n + k)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
