@@ -20,9 +20,11 @@ every comparison below shows whether they hold); builds the kernels from
    N=1M, K=1024, M=128) and duplicated centroids for the tie order; K-C
    (grouped Lloyd round) at the SIFT PQ shape (B=8, N=1M, K=256, m=16),
    GIST's division count with pad slots (B=60, N=100k, m=16), m=8, m=32
-   and duplicated centroids, each also held to K-B's assignment up to
-   near-ties (K-C ranks with f32 FMAs, K-B with 3xTF32 tensor-core
-   products: the two may order a near-tie either way).
+   and duplicated centroids, each also held to K-B's assignment on the
+   ungrouped data (both rank with the same 3xTF32 tensor-core product in
+   the same order, so the rows that differ are expected to be 0; the
+   check allows near-ties). The kernels' ``ptxas`` registers and spills
+   are printed for each K-C instance.
    Kernel and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C.
@@ -55,10 +57,10 @@ The line before the last is the kernels' JSON record: a row per TPU
 kernel of the JAX package, with its counterpart's launches over the two
 paths, its time, its plain version's and its bound from this run's
 inputs: the larger of bytes over 3.35 TB/s and operations over the rate
-of the units the kernel runs on, the H100 SXM's published peaks (K-B:
-TF32 tensor cores, 494.7 TFLOP/s; K-A, K-C: fp32, 67 TFLOP/s). The
+of the units the kernel runs on, the H100 SXM's published peaks (K-B,
+K-C: TF32 tensor cores, 494.7 TFLOP/s; K-A: fp32, 67 TFLOP/s). The
 operations are those the function needs (2·B·N·K·M for a Lloyd round),
-not those of a route: K-B's 3xTF32 product issues three times as many.
+not those of a route: the 3xTF32 product issues three times as many.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero with no result line.
 """
@@ -67,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -181,6 +184,29 @@ def setup(torch):
     log(f"kernel build + load: {time.perf_counter() - t0:.3f} s")
     if _kernels.build_log:
         log(_kernels.build_log.strip())
+        for line in grouped_ptxas(_kernels.build_log):
+            log(line)
+
+
+def grouped_ptxas(build_log: str) -> list:
+    """One line per K-C instance (its subvector width M) from ``ptxas -v``:
+    registers, stack frame and spills."""
+    out, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "spill" in line:
+            frame = line.strip()
+        elif name and "Used" in line:
+            w = re.search(r"grouped_round_kernelILi(\d+)E", name)
+            if w:
+                regs = re.search(r"Used (\d+) registers", line)
+                out.append(f"K-C ptxas M={w.group(1)}: "
+                           f"{regs.group(1) if regs else '?'} registers, "
+                           f"{frame}")
+            name = None
+    return out
 
 
 # --- phase 1: kernel parity -------------------------------------------------
@@ -292,8 +318,8 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         raise AssertionError(f"{name} picked a later duplicate centroid")
     ties = tie_rows(x, c, idx, p_idx, f"{name} against its plain version")
     if grouped:
-        # K-C's f32 FMAs and K-B's 3xTF32 tensor-core product round
-        # differently, so the two agree up to near-ties, not bit for bit.
+        # K-C splits, multiplies and accumulates as K-B does, so their
+        # distances and picks are expected to be equal (0 rows differ).
         kb_ties = tie_rows(x, c, idx, lloyd.lloyd_round(x, c)[0],
                            "K-C against K-B")
     # Sums and counts checked against the plain scatter of the kernel's
@@ -316,12 +342,11 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         plain_ms = cuda_ms(torch, plain, 5)
         if grouped:
             kb_ms = cuda_ms(torch, lambda: lloyd.lloyd_round(x, c), 5)
-    rate, ops = ((FP32_FLOPS, "operations") if grouped
-                 else (TF32_FLOPS, "operations (TF32 tensor cores)"))
-    bms, by = lloyd_bound(x_bytes, b, n, k, m, rate, ops)
+    bms, by = lloyd_bound(x_bytes, b, n, k, m, TF32_FLOPS,
+                          "operations (TF32 tensor cores)")
     log(f"{name} B={b} N={n} K={k} M={m}{' dup' if dup else ''}: "
         f"{ties} tie rows differ"
-        + (f" ({kb_ties} from K-B's)" if grouped else "")
+        + (f", {kb_ties} rows from K-B's (0 expected)" if grouped else "")
         + f"  sums max_abs_err {err:.3g}  "
         f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
         + (f"  K-B on the ungrouped data {kb_ms:.3f} ms" if grouped

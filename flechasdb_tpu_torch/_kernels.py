@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into ONE
 shared library with a plain C interface, loaded through :mod:`ctypes`.
 The build runs at the first launch (never at import: the package imports
 on machines with no CUDA toolkit) into ``build/`` beside this file, under
-a name keyed on the sources' hash, so an edited source rebuilds. As with
+a name keyed on the hash of the sources and of the ``csrc/*.cuh`` headers
+they include, so an edited source or header rebuilds. As with
 the JAX package's native IO runtime (``flechasdb_tpu/_native.py``), the
 compiler writes a per-process temp name that is renamed into place, and a
 file lock keeps concurrent first callers from racing two builds. A failed
@@ -71,7 +72,7 @@ def _nvcc() -> str:
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(_SRC_DIR.glob("*.cu*")):  # the .cu files and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libfdb_kernels-{h.hexdigest()[:16]}.so"

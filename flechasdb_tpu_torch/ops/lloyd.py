@@ -21,9 +21,11 @@ of ``csrc/lloyd_round.cu``.
 ``pallas_kmeans.lloyd_round_grouped``: ``xg [G, N, 128]`` from
 :func:`regroup_divisions` and ``centroids [B, K, m]`` (``128 % m == 0``)
 → the same three outputs as :func:`lloyd_round` on the ungrouped data.
-On a CUDA tensor it launches K-C (m in 8, 16, 32, 64), whose f32 FMAs
-agree with K-B's 3xTF32 product up to near-ties; on a CPU tensor it runs
-:func:`lloyd_round_grouped_plain`.
+On a CUDA tensor it launches K-C (m in 8, 16, 32, 64), one launch a
+round with the cluster sums fused: the same 3xTF32 tensor-core product in
+K-B's order, so its distances, and so its indices, equal K-B's on the
+ungrouped data; on a CPU tensor it runs :func:`lloyd_round_grouped_plain`.
+The source note is at the top of ``csrc/lloyd_grouped.cu``.
 """
 
 from __future__ import annotations

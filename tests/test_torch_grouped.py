@@ -12,8 +12,13 @@ the JAX one.
 
 The CUDA kernel runs only on the card: those tests carry the ``cuda``
 marker and skip here. On the card, K-C's indices must agree with K-B's
-on the ungrouped data and with the cuBLAS plain version up to near-ties
-(K-C's f32 FMAs and K-B's 3xTF32 tensor-core product round differently).
+on the ungrouped data exactly (K-C forms K-B's 3xTF32 tensor-core
+product in K-B's order) and with the cuBLAS plain version up to near-ties
+(the f32 plain version rounds differently). The card cases also cover
+N below one row tile of the kernel, K=1, centroid tiles walked over K
+(m=64, K=300) and sums added to global memory where the block-private
+ones do not fit (K=4096), and hold the counts to N, so rows past N add
+nothing.
 """
 
 import types
@@ -210,7 +215,10 @@ def _near_tie_rows(x, c, a, b):
                                          (4, 3000, 256, 32, False),
                                          (3, 2000, 300, 64, False),
                                          (10, 777, 9, 16, False),
-                                         (8, 3000, 256, 16, True)])
+                                         (8, 3000, 256, 16, True),
+                                         (3, 50, 16, 16, False),
+                                         (4, 300, 1, 8, False),
+                                         (2, 1000, 4096, 16, False)])
 def test_kernel_matches_plain_and_k_b_on_card(cuda, b, n, k, m, dup):
     rng = np.random.default_rng(n + k + m)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
@@ -226,11 +234,11 @@ def test_kernel_matches_plain_and_k_b_on_card(cuda, b, n, k, m, dup):
     assert _kernels.LAUNCHES["lloyd_grouped"] == before + 1
     ref_idx = lloyd.lloyd_round_grouped_plain(xg, ct)[0].cpu().numpy()
     assert not ((idx != ref_idx) & ~_near_tie_rows(x, c, idx, ref_idx)).any()
-    # K-B ranks with a 3xTF32 tensor-core product and K-C with f32 FMAs:
-    # the two round differently, so they agree up to near-ties.
+    # K-C splits, multiplies and accumulates as K-B does: equal picks.
     kb_idx = lloyd.lloyd_round(xt, ct)[0].cpu().numpy()
-    assert not ((idx != kb_idx) & ~_near_tie_rows(x, c, idx, kb_idx)).any()
+    np.testing.assert_array_equal(idx, kb_idx)
     _onehot_check(x, idx, sums, counts, k)
+    np.testing.assert_array_equal(counts.sum(-1), np.full(b, n))
     if dup:
         assert not np.isin(idx, [7, k - 1]).any()
 

@@ -106,9 +106,9 @@ def _tf32(v, nearest=True):
 
 
 def _tf32_distances(x, c, passes=3):
-    """K-B's distances on the card, emulated: each operand split into hi,
-    its tf32 to nearest, and lo = v - hi, which the tensor cores read
-    truncated to tf32; x·c as lo·hi + hi·lo + hi·hi in f32 (or hi·hi
+    """K-B's and K-C's distances on the card, emulated: each operand split
+    into hi, its tf32 to nearest, and lo = v - hi, which the tensor cores
+    read truncated to tf32; x·c as lo·hi + hi·lo + hi·hi in f32 (or hi·hi
     alone, ``passes=1``), then ‖c‖² − 2 x·c in f32."""
     xh, ch = _tf32(x), _tf32(c)
     xl, cl = _tf32(x - xh, nearest=False), _tf32(c - ch, nearest=False)
@@ -139,14 +139,21 @@ def test_tf32_rounding_and_split():
     assert (np.abs(r - hi - lo) <= np.abs(r) * 2.0 ** -21).all()
 
 
+# K-C's shapes (b, n, m, k): the SIFT PQ fit's m=16 and K=256, m=8, m=32,
+# and m=64 with K=300.
+GROUPED_SHAPES = [(8, 3000, 16, 256), (16, 2000, 8, 256), (4, 2000, 32, 256),
+                  (3, 1000, 64, 300)]
+
+
 @pytest.mark.parametrize("b,n,m,k", ROUND_SHAPES + [(1, 5000, 1536, 100),
                                                     (12, 3000, 128, 256),
-                                                    (1, 2000, 96, 1024)])
+                                                    (1, 2000, 96, 1024)]
+                         + GROUPED_SHAPES)
 def test_three_tf32_product_ranks_as_float64(b, n, m, k):
-    """The card kernel's 3xTF32 product, emulated on the CPU, picks the
-    float64 argmin up to TIE_REL near-ties, and its distances err less
-    than a tenth of TIE_REL of the row's scale, where a single tf32 pass
-    does not."""
+    """The card kernels' 3xTF32 product (K-B's, and K-C's on grouped
+    data), emulated on the CPU, picks the float64 argmin up to TIE_REL
+    near-ties, and its distances err less than a tenth of TIE_REL of the
+    row's scale, where a single tf32 pass does not."""
     rng = np.random.default_rng(n + k)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
     c = (x[:, rng.integers(0, n, k)] if k <= n else
