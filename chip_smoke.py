@@ -13,8 +13,10 @@ every comparison below shows whether they hold); builds the kernels from
 
 1. Kernel parity. Each hand-written kernel runs against its plain
    PyTorch version on the card at the main paths' shapes: K-A (ADC bucket
-   scan) packed D=12, packed D=8 and unpacked C=200; ``adc_lookup`` (K-A
-   over pre-gathered codes) at G=640, D=8, C=256, L=1280 unpacked; K-B
+   scan) packed D=12, packed D=8 and unpacked C=200, and two tables of
+   256 KB a cell, over a block's shared memory (D=256, C=256 packed and
+   D=64, C=1024 unpacked); ``adc_lookup`` (K-A over pre-gathered codes)
+   at G=640, D=8, C=256, L=1280 unpacked; K-B
    (fused Lloyd round) at the coarse fit (B=1, N=100k, K=100, M=1536), the
    PQ fit (B=12, N=100k, K=256, m=128), K=1024, the SIFT coarse fit (B=1,
    N=1M, K=1024, M=128) and duplicated centroids for the tie order; K-C
@@ -25,9 +27,10 @@ every comparison below shows whether they hold); builds the kernels from
    the same order, so the rows that differ are expected to be 0; the
    check allows near-ties). The kernels' ``ptxas`` registers and spills
    are printed for each K-C instance.
-   Kernel and plain times are CUDA-event means over back-to-back warm
+   K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
-   ungrouped data beside K-C.
+   ungrouped data beside K-C. K-A is only checked here and timed in
+   phase 4.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -50,12 +53,24 @@ every comparison below shows whether they hold); builds the kernels from
    the bucketed one; the masked layout's time for all 1,000 queries and
    its peak device memory, which must stay within its budget, are
    printed.
+4. K-A's times, after the paths, so that ``torch.profiler`` has not run
+   in the process while they were timed: at phase 1's six shapes and at
+   each path's own buckets and query tables (checked against the plain
+   version at the end of each path). K-A's calls last microseconds, less
+   than the host's time to issue one, so its time is the device's: the
+   profiler's CUDA activity for the kernel, a launch, each call after a
+   read of 256 MiB that evicts its inputs from the 50 MB L2 (``ms``), and
+   over back-to-back calls whose inputs the call before left in L2
+   (``warm_ms``). The host time per back-to-back call (host clock, ended
+   by a synchronize) is printed beside them; the plain version's is a
+   CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
 queries) and read just after; every kernel a path runs must have run.
 The line before the last is the kernels' JSON record: a row per TPU
 kernel of the JAX package, with its counterpart's launches over the two
-paths, its time, its plain version's and its bound from this run's
+paths, its time (``ms_by`` names the method; K-A's rows also carry
+``warm_ms`` and ``host_ms``), its plain version's and its bound from this run's
 inputs: the larger of bytes over 3.35 TB/s and operations over the rate
 of the units the kernel runs on, the H100 SXM's published peaks (K-B,
 K-C: TF32 tensor cores, 494.7 TFLOP/s; K-A: fp32, 67 TFLOP/s). The
@@ -85,6 +100,7 @@ RTOL, ATOL = 1e-4, 1e-5          # the query path's parity tolerance
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-3  # Lloyd sums: f32 atomics in any order
 TIE_REL = 1e-5                   # Lloyd picks may differ only this close
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12   # H100 SXM published peaks
+L2_FLUSH_BYTES = 256 << 20                # over the H100's 50 MB of L2
 TF32_FLOPS = 494.7e12                     # H100 SXM dense TF32
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
@@ -119,6 +135,77 @@ def cuda_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         means.append(start.elapsed_time(end) / reps)
     return statistics.median(means)
+
+
+def device_ms(torch, fn, reps: int, kernel: str) -> dict:
+    """Times ``reps`` calls of ``fn``: ``ms``, the device time of one
+    launch of the kernels whose name holds ``kernel`` (``torch.profiler``'s
+    CUDA activity, their total time over the launches it recorded: it may
+    miss one), each call after a read of ``L2_FLUSH_BYTES`` that evicts
+    its inputs from L2; ``warm_ms``, the same over back-to-back calls;
+    ``by``, the method; ``host_ms``, the host clock per back-to-back call,
+    ended by a synchronize. Raises where the profiler records no such
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    def profiled(cold: bool):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                total += getattr(e, "self_device_time_total", None) \
+                    or getattr(e, "self_cuda_time_total", 0)
+                count += e.count
+        if not count:
+            raise AssertionError(f"the profiler recorded no launch of "
+                                 f"{kernel}")
+        return total / count / 1e3, count
+
+    ms, count = profiled(True)
+    warm_ms, _ = profiled(False)
+    return {"ms": ms, "warm_ms": warm_ms, "host_ms": host_ms,
+            "profiled": count,
+            "by": "torch.profiler, a launch, L2 flushed before each call"}
+
+
+def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
+    """K-A's ``call`` against its ``plain`` version (raises where they
+    disagree): the case phase 4 times."""
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    err = scan_error(torch, got, want)
+    log(f"K-A {label}: max_abs_err {err:.3g}  bound {bound_[0]:.4f} ms "
+        f"({bound_[1]})")
+    return {"label": label, "err": err, "call": call, "plain": plain,
+            "bound": bound_, "reps": reps}
+
+
+def time_scan(torch, case: dict) -> None:
+    """Adds K-A's :func:`device_ms` and its plain version's CUDA-event
+    time to ``case``."""
+    case.update(device_ms(torch, case["call"], case["reps"],
+                          "adc_scan_kernel"))
+    case["plain_ms"] = cuda_ms(torch, case["plain"], case["reps"])
+    log(f"K-A {case['label']}: kernel {case['ms']:.4f} ms device with a "
+        f"cold L2, {case['warm_ms']:.4f} ms back to back "
+        f"({case['profiled']} launches profiled), host "
+        f"{case['host_ms'] * 1e3:.1f} us a call  plain "
+        f"{case['plain_ms']:.4f} ms  bound {case['bound'][0]:.4f} ms "
+        f"({case['bound'][1]})")
 
 
 def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS,
@@ -220,8 +307,10 @@ def pack(torch, raw, d):
     return words
 
 
-def parity_scan(torch, gen, d, c, packed, l=2048, g=N_BATCH * NPROBE):
-    from flechasdb_tpu_torch.ops import scan
+def scan_inputs(torch, gen, d, c, packed, l=2048, g=N_BATCH * NPROBE):
+    """K-A's ``(bcodes, ftab, bidx, lengths)``: P random buckets, packed
+    or not, G random tables and cells, random lengths (one cell empty, one
+    full)."""
     dev = "cuda"
     raw = torch.randint(0, c, (P, d, l), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -232,17 +321,18 @@ def parity_scan(torch, gen, d, c, packed, l=2048, g=N_BATCH * NPROBE):
     lens = torch.randint(0, l + 1, (g,), generator=gen, device=dev,
                          dtype=torch.int32)
     lens[0], lens[1] = 0, l
-    got = scan.adc_lookup_indexed(codes, ftab, bidx, lens, d=d)
-    want = scan.adc_lookup_indexed_plain(codes, ftab, bidx, lens, d=d)
-    torch.cuda.synchronize()
-    err = scan_error(torch, got, want)
-    ms = cuda_ms(torch, lambda: scan.adc_lookup_indexed(
-        codes, ftab, bidx, lens, d=d), 20)
-    plain_ms = cuda_ms(torch, lambda: scan.adc_lookup_indexed_plain(
-        codes, ftab, bidx, lens, d=d), 20)
-    log(f"K-A adc_scan D={d} C={c} rows={codes.shape[1]} G={g} L={l}: "
-        f"max_abs_err {err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return codes, ftab, bidx, lens
+
+
+def parity_scan(torch, gen, d, c, packed, l=2048, g=N_BATCH * NPROBE):
+    from flechasdb_tpu_torch.ops import scan
+    args = scan_inputs(torch, gen, d, c, packed, l, g)
+    return scan_case(
+        torch, f"adc_scan D={d} C={c} rows={args[0].shape[1]} G={g} L={l} "
+        f"table {d * c * 4 // 1024} KB",
+        lambda: scan.adc_lookup_indexed(*args, d=d),
+        lambda: scan.adc_lookup_indexed_plain(*args, d=d),
+        scan_bound(*args, d), 20)
 
 
 def parity_lookup(torch, gen, g=640, d=8, c=256, l=1280):
@@ -252,18 +342,11 @@ def parity_lookup(torch, gen, g=640, d=8, c=256, l=1280):
     codes = torch.randint(0, c, (g, d, l), generator=gen, device="cuda",
                           dtype=torch.int32)
     ftab = torch.rand((g, d * c), generator=gen, device="cuda")
-    got = scan.adc_lookup(codes, ftab, d=d)
-    want = scan.adc_lookup_plain(codes, ftab, d=d)
-    torch.cuda.synchronize()
-    err = scan_error(torch, got, want)
-    ms = cuda_ms(torch, lambda: scan.adc_lookup(codes, ftab, d=d), 50)
-    plain_ms = cuda_ms(torch, lambda: scan.adc_lookup_plain(codes, ftab,
-                                                            d=d), 50)
-    bms, by = scan_bound(codes, ftab, torch.arange(g), None, d)
-    log(f"adc_lookup (K-A) G={g} D={d} C={c} L={l} unpacked: max_abs_err "
-        f"{err:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-        f"{bms:.4f} ms ({by})")
-    return err, ms, plain_ms, bms, by
+    return scan_case(
+        torch, f"adc_lookup G={g} D={d} C={c} L={l} unpacked",
+        lambda: scan.adc_lookup(codes, ftab, d=d),
+        lambda: scan.adc_lookup_plain(codes, ftab, d=d),
+        scan_bound(codes, ftab, torch.arange(g), None, d), 50)
 
 
 def scan_error(torch, got, want) -> float:
@@ -447,16 +530,22 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def slice_run(torch, seed: int):
-    import flechasdb_tpu_torch as ft
-    from flechasdb_tpu_torch import _kernels
-
+def headline_data(seed: int):
+    """bench.py's N x M unit rows and N_BATCH + N_SINGLE noisy queries."""
     rng = np.random.default_rng(seed)
-    t0 = time.perf_counter()
     x = rng.standard_normal((N, M), dtype=np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     q = x[rng.choice(N, N_BATCH + N_SINGLE, replace=False)]
     q = q + 0.02 * rng.standard_normal(q.shape, dtype=np.float32)
+    return x, q
+
+
+def slice_run(torch, seed: int):
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+
+    t0 = time.perf_counter()
+    x, q = headline_data(seed)
     log(f"data {N}x{M} (numpy, seed {seed}): "
         f"{time.perf_counter() - t0:.3f} s")
 
@@ -518,11 +607,11 @@ def check_build(db, x, p, d, c) -> None:
             "the build did not quantize the data")
 
 
-def scan_at_main_path(torch, index, q, nprobe, what):
-    """K-A against its plain version on a path's own bucketed index and
-    the tables of its query batch (these launches are not counted in the
-    path's run, which has ended)."""
-    from flechasdb_tpu_torch.ops import adc, bucketed, scan
+def main_path_scan_args(torch, index, q, nprobe):
+    """K-A's arguments ``(bcodes, ftab, bidx, lengths)`` and ``d`` as a
+    path's query batch gives them: its bucketed index and the tables of
+    its queries."""
+    from flechasdb_tpu_torch.ops import adc, bucketed
     bk = index.buckets
     d, c, _ = index.codebooks.shape
     qd = torch.as_tensor(q, device="cuda")
@@ -530,21 +619,23 @@ def scan_at_main_path(torch, index, q, nprobe, what):
     probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
     tables = bucketed.probed_tables(qd, index.centroids, index.codebooks,
                                     probed, coarse=coarse)
-    args = (bk.codes, tables.reshape(-1, d * c).contiguous(),
+    return (bk.codes, tables.reshape(-1, d * c).contiguous(),
             probed.reshape(-1).to(torch.int32).contiguous(),
-            bk.lengths[probed].reshape(-1).contiguous())
-    got = scan.adc_lookup_indexed(*args, d=d)
-    want = scan.adc_lookup_indexed_plain(*args, d=d)
-    torch.cuda.synchronize()
-    err = scan_error(torch, got, want)
-    ms = cuda_ms(torch, lambda: scan.adc_lookup_indexed(*args, d=d), 20)
-    plain_ms = cuda_ms(torch, lambda: scan.adc_lookup_indexed_plain(
-        *args, d=d), 20)
-    bms, by = scan_bound(*args, d)
-    log(f"K-A adc_scan at {what} buckets: codes {tuple(bk.codes.shape)}"
-        f" G={args[1].shape[0]}  max_abs_err {err:.3g}  kernel {ms:.4f} ms"
-        f"  plain {plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
-    return err, ms, plain_ms, bms, by
+            bk.lengths[probed].reshape(-1).contiguous()), d
+
+
+def scan_at_main_path(torch, index, q, nprobe, what):
+    """K-A against its plain version on a path's own bucketed index and
+    the tables of its query batch (these launches are not counted in the
+    path's run, which has ended)."""
+    from flechasdb_tpu_torch.ops import scan
+    args, d = main_path_scan_args(torch, index, q, nprobe)
+    return scan_case(
+        torch, f"adc_scan at {what} buckets: codes "
+        f"{tuple(index.buckets.codes.shape)} G={args[1].shape[0]}",
+        lambda: scan.adc_lookup_indexed(*args, d=d),
+        lambda: scan.adc_lookup_indexed_plain(*args, d=d),
+        scan_bound(*args, d), 20)
 
 
 def ground_truth(torch, x, q, k: int) -> np.ndarray:
@@ -708,11 +799,19 @@ def sift_run(torch, seed: int):
 
 
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
-        by):
+        by, ms_by="cuda events", **extra):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "ms_by": ms_by, **extra}
+
+
+def scan_row(replaces, launches, err, case, name="adc_scan"):
+    """A K-A row from a timed :func:`scan_case`: its device time with a
+    cold L2, the method, and the warm and host times."""
+    return row(name, "cuda", SRC_A, replaces, launches, err, case["ms"],
+               case["plain_ms"], *case["bound"], case["by"],
+               warm_ms=case["warm_ms"], host_ms=case["host_ms"])
 
 
 def main() -> None:
@@ -728,7 +827,9 @@ def main() -> None:
     gen = torch.Generator("cuda").manual_seed(args.seed)
     a_cases = [parity_scan(torch, gen, 12, 256, True),
                parity_scan(torch, gen, 8, 256, True),
-               parity_scan(torch, gen, 12, 200, False)]
+               parity_scan(torch, gen, 12, 200, False),
+               parity_scan(torch, gen, 256, 256, True, l=1152),
+               parity_scan(torch, gen, 64, 1024, False, l=1152)]
     lookup = parity_lookup(torch, gen)
     b_cases = [parity_lloyd(torch, gen, 1, N, P, M),
                parity_lloyd(torch, gen, D, N, C, M // D),
@@ -753,19 +854,22 @@ def main() -> None:
     t0 = time.perf_counter()
     sift_launches, a_sift = sift_run(torch, args.seed)
     log(f"phase 3 (SIFT path): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    a_cases += [a_main, a_sift]
+    for case in a_cases + [lookup]:
+        time_scan(torch, case)
+    log(f"phase 4 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k]
                 for k in slice_launches}
-    a_err = max(e[0] for e in a_cases + [a_main, a_sift])
+    a_err = max(case["err"] for case in a_cases)
     kernels = [
-        row("adc_scan", "cuda", SRC_A, REPLACES["indexed"],
-            launches["adc_scan"], a_err, *a_main[1:]),
-        row("adc_scan", "cuda", SRC_A, REPLACES["pipe"],
-            launches["adc_scan"], a_err, *a_sift[1:]),
-        row("adc_lookup", "cuda", SRC_A, REPLACES["lookup"],
-            launches["adc_lookup"], *lookup),
+        scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),
+        scan_row(REPLACES["pipe"], launches["adc_scan"], a_err, a_sift),
+        scan_row(REPLACES["lookup"], launches["adc_lookup"], lookup["err"],
+                 lookup, "adc_lookup"),
         row("lloyd_round", "cuda", SRC_B, REPLACES["round"],
             launches["lloyd_round"], max(e[0] for e in b_cases),
             *b_cases[1][1:]),

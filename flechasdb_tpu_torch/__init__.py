@@ -16,7 +16,7 @@ each kernel's plain PyTorch version runs instead; on a CUDA tensor the
 kernel launches or the call raises. The port imports neither jax nor the
 JAX package (whose ``__init__`` imports jax): it carries copies of the
 few jax-free host helpers it needs (:mod:`.errors`, :mod:`.events`,
-:mod:`.host`), with the same names and messages.
+:mod:`.host`, :mod:`.attributes`), with the same names and messages.
 """
 
 from .errors import (
@@ -29,10 +29,14 @@ from .errors import (
     VerificationFailure,
 )
 
+from .attributes import AttributeTable, Attributes, AttributeValue
 from .build import Database, DatabaseBuilder, QueryResult
 from .convert import from_jax_arrays, to_arrays
 
 __all__ = [
+    "AttributeTable",
+    "Attributes",
+    "AttributeValue",
     "Database",
     "DatabaseBuilder",
     "FlechasError",

@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import uuid as _uuid
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import events as ev
 from ._roadmap import not_ported
+from .attributes import AttributeValue, check_attribute_value
 from .errors import InvalidArgs
 from .events import EventHandler, _noop
 from .host import as_vector_set, check_metric, normalize_rows
@@ -247,6 +248,26 @@ class Database:
 
     def remove_vectors(self, vector_ids):
         raise not_ported("remove_vectors", 15)
+
+    # -- attributes (build.rs:228-285) --------------------------------------
+
+    def get_attribute(self, vector_id: _uuid.UUID,
+                      key: str) -> Optional[AttributeValue]:
+        try:
+            attrs = self.attribute_table[vector_id]
+        except KeyError:
+            raise InvalidArgs(f"no such vector ID: {vector_id}") from None
+        return attrs.get(key)
+
+    def set_attribute_at(self, i: int, attribute: Tuple[str, AttributeValue],
+                         ) -> None:
+        if not 0 <= i < self.num_vectors:
+            raise InvalidArgs(f"vector index out of bounds: {i}")
+        key, value = attribute
+        value = check_attribute_value(value)
+        vid = self.vector_ids[i]
+        self.attribute_table.setdefault(vid, {})[str(key)] = value
+        # No filter cache to invalidate: filters are not ported (item 10).
 
     # -- queries (build.rs:293-382) ------------------------------------------
 

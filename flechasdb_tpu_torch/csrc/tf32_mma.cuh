@@ -1,7 +1,8 @@
-// Device helpers shared by the Lloyd-round kernels K-B (lloyd_round.cu) and
-// K-C (lloyd_grouped.cu): cp.async copies, the tf32 split and the m16n8k8
-// tf32 MMA. Both kernels split and multiply with these same functions, in
-// the same order, which is what makes their distances equal bit for bit.
+// Device helpers shared by the kernels: cp.async copies (K-A adc_scan.cu,
+// K-B lloyd_round.cu, K-C lloyd_grouped.cu), the tf32 split and the m16n8k8
+// tf32 MMA (K-B and K-C). K-B and K-C split and multiply with these same
+// functions, in the same order, which is what makes their distances equal
+// bit for bit.
 // The definitions sit in an anonymous namespace, so each kernel's
 // translation unit keeps its own copy.
 

@@ -28,9 +28,6 @@ import torch
 
 from .. import _kernels
 
-#: Largest table the kernel stages in shared memory (227 KB).
-MAX_TABLE_BYTES = 232448
-
 #: ``adc_lookup`` takes code rows whose length L is a multiple of this.
 LANE = 128
 
@@ -101,14 +98,12 @@ def _launch(bcodes: torch.Tensor, ftab: torch.Tensor, bidx: torch.Tensor,
             lengths: Optional[torch.Tensor], d: int, name: str,
             ) -> torch.Tensor:
     """Runs K-A on checked arguments and counts the launch under
-    ``name``."""
+    ``name``. The kernel takes any table size: it walks the table through
+    shared memory in chunks of divisions."""
     if bcodes.device.type != "cuda":
         raise ValueError(f"unsupported device: {bcodes.device}")
     g, dc = ftab.shape
     rows, l = bcodes.shape[1], bcodes.shape[2]
-    if dc * 4 > MAX_TABLE_BYTES:
-        raise ValueError(f"table of {dc * 4} bytes exceeds the kernel's "
-                         f"{MAX_TABLE_BYTES}-byte shared memory")
     out = torch.empty((g, l), dtype=torch.float32, device=bcodes.device)
     if g == 0 or l == 0:
         return out

@@ -174,6 +174,28 @@ def test_query_bucketed_tie_order_matches_jax(metric):
                                rtol=RTOL, atol=ATOL)
 
 
+# Tables of 256 KB a cell, over the 227 KB of shared memory a block may
+# hold: D=256, C=256 (packed codes) and D=64, C=1024 (unpacked).
+@pytest.mark.parametrize("d,c,m", [(256, 256, 256), (64, 1024, 256)])
+def test_query_bucketed_large_tables_match_jax(d, c, m):
+    rng = np.random.default_rng(d + c)
+    centroids, codebooks, codes, pidx = _index(rng, n=500, m=m, p=6, d=d,
+                                               c=c)
+    q = rng.standard_normal((4, m)).astype(np.float32)
+    bk = bucketed.bucketize(codes, pidx, 6)
+    assert bk.codes.shape[1] == (d // 4 if c <= 256 else d)
+    got = bucketed.query_bucketed(_t(q), _t(centroids), _t(codebooks), bk,
+                                  k=10, nprobe=3)
+    want = jb.query_bucketed(
+        jnp.asarray(q), jnp.asarray(centroids), jnp.asarray(codebooks),
+        jb.bucketize(codes, pidx, 6, pack="auto"), k=10, nprobe=3,
+        impl="gather")
+    got = [a.numpy() for a in got]
+    want = [np.asarray(a) for a in want]
+    np.testing.assert_array_equal(got[2], want[2])
+    _rows_match_up_to_ties(got[0], got[1], want[0], want[1])
+
+
 def test_query_bucketed_approx_is_answered_exactly():
     rng = np.random.default_rng(14)
     centroids, codebooks, codes, pidx = _index(rng, n=600, p=5)

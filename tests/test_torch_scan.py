@@ -26,7 +26,7 @@ from flechasdb_tpu.ops.bucketed import bucket_scan
 from flechasdb_tpu.ops.pallas_scan import adc_lookup as jax_lookup
 from flechasdb_tpu.ops.pallas_scan import adc_lookup_indexed as jax_indexed
 from flechasdb_tpu_torch import _kernels
-from flechasdb_tpu_torch.ops import scan
+from flechasdb_tpu_torch.ops import bucketed, scan
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -248,14 +248,33 @@ def test_adc_lookup_matches_plain_on_card(cuda, g, d, c, l, pack):
     _assert_close(got.cpu().numpy(), want.cpu().numpy())
 
 
+# (d, c, pack, l, g, lens): the paths' shapes; tables over the 227 KB of
+# shared memory a block may hold (D=256, C=256 packed; D=64, C=1024
+# unpacked); tables just under and just over one 32 KB chunk of the table
+# (28 and 36 packed divisions at C=256, 7 and 9 unpacked at C=1024); L not
+# a multiple of 4 (scalar code loads and stores at the edge); C not a
+# multiple of 4 (4-byte table copies); one cell; every length 0. ``lens``: "mixed" (one empty cell, one full, the rest
+# random), "none" (no lengths) or "zero".
+_CARD = [(12, 256, True, 2048, 37, "mixed"), (8, 256, True, 3072, 37, "mixed"),
+         (12, 200, False, 2048, 37, "mixed"), (5, 64, True, 384, 37, "mixed"),
+         (4, 300, False, 4608, 37, "mixed"),
+         (256, 256, True, 1152, 37, "mixed"),
+         (64, 1024, False, 1152, 37, "mixed"),
+         (28, 256, True, 640, 37, "mixed"), (36, 256, True, 640, 37, "mixed"),
+         (7, 1024, False, 640, 37, "mixed"), (9, 1024, False, 640, 37, "mixed"),
+         (12, 256, True, 1150, 37, "mixed"), (5, 200, False, 383, 37, "mixed"),
+         (5, 25, True, 384, 37, "mixed"), (3, 301, False, 256, 37, "mixed"),
+         (12, 256, True, 1152, 1, "none"), (64, 1024, False, 1001, 1, "none"),
+         (8, 256, True, 2048, 37, "zero")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,c,pack,l", [(12, 256, True, 2048),
-                                        (8, 256, True, 3072),
-                                        (12, 200, False, 2048),
-                                        (5, 64, True, 384),
-                                        (4, 300, False, 4608)])
-def test_kernel_matches_plain_on_card(cuda, d, c, pack, l):
-    args = _case(np.random.default_rng(d * c), 9, d, c, l, 37, pack, True)
+@pytest.mark.parametrize("d,c,pack,l,g,lens", _CARD)
+def test_kernel_matches_plain_on_card(cuda, d, c, pack, l, g, lens):
+    args = _case(np.random.default_rng(d * c + l), 9, d, c, l, g, pack,
+                 lens != "none")
+    if lens == "zero":
+        args[3][:] = 0
     t = [None if a is None else torch.from_numpy(a).to(cuda) for a in args]
     before = _kernels.LAUNCHES["adc_scan"]
     got = scan.adc_lookup_indexed(*t, d=d)
@@ -263,3 +282,54 @@ def test_kernel_matches_plain_on_card(cuda, d, c, pack, l):
     want = scan.adc_lookup_indexed_plain(*t, d=d)
     torch.cuda.synchronize()
     _assert_close(got.cpu().numpy(), want.cpu().numpy())
+    if lens == "zero":
+        assert bool(torch.isinf(got).all())
+
+
+@pytest.mark.cuda
+def test_kernel_keeps_its_shared_memory_maximum_across_tables(cuda):
+    """Two unpacked tables over 48 KB in one process: D=64, C=1024 needs
+    65,536 bytes of shared memory a block and D=16, C=1500 60,000. The
+    smaller one in between must leave the kernel able to take the larger
+    one again."""
+    for d, c in [(64, 1024), (16, 1500), (64, 1024)]:
+        args = _case(np.random.default_rng(d + c), 9, d, c, 640, 37, False,
+                     True)
+        t = [torch.from_numpy(a).to(cuda) for a in args]
+        got = scan.adc_lookup_indexed(*t, d=d)
+        want = scan.adc_lookup_indexed_plain(*t, d=d)
+        torch.cuda.synchronize()
+        _assert_close(got.cpu().numpy(), want.cpu().numpy(), msg=str((d, c)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c", [(256, 256), (64, 1024)])
+def test_query_bucketed_large_tables_on_card(cuda, d, c):
+    """The bucketed query with 256 KB tables, on the card through K-A and
+    on the CPU through the plain version: the same probes, distances
+    within the tolerance, rows equal up to distance ties."""
+    rng = np.random.default_rng(d + c)
+    n, m, p = 3000, 256, 8
+    centroids = rng.standard_normal((p, m)).astype(np.float32)
+    codebooks = rng.standard_normal((d, c, m // d)).astype(np.float32)
+    codes = rng.integers(0, c, (n, d)).astype(np.int32)
+    pidx = rng.integers(0, p, n).astype(np.int32)
+    q = rng.standard_normal((6, m)).astype(np.float32)
+
+    def run(dev):
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        bk = bucketed.bucketize(codes, pidx, p, device=dev)
+        return [a.cpu().numpy() for a in bucketed.query_bucketed(
+            t(q), t(centroids), t(codebooks), bk, k=10, nprobe=4)]
+    before = _kernels.LAUNCHES["adc_scan"]
+    got = run(cuda)
+    assert _kernels.LAUNCHES["adc_scan"] == before + 1
+    want = run("cpu")
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[0], want[0], rtol=RTOL, atol=ATOL)
+    for b, i in zip(*np.nonzero(got[1] != want[1])):
+        twin = np.flatnonzero(want[1][b] == got[1][b, i])
+        assert i == got[1].shape[1] - 1 or (
+            twin.size and np.isclose(want[0][b, twin[0]], got[0][b, i],
+                                     rtol=RTOL, atol=ATOL)), (b, i)

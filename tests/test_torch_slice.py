@@ -277,7 +277,7 @@ def test_port_built_database_saves_and_loads_with_jax(tmp_path):
 
     rng, x = _corpus(7, 500, 32, 3, True)
     db = _builder(ft, x, 8, 4, 16, 11, device="cpu").build()
-    db.attribute_table[db.vector_ids[0]] = {"label": "first"}
+    db.set_attribute_at(0, ("label", "first"))
     root = fdb.save_database(JaxDatabase(**ft.to_arrays(db)),
                              fdb.LocalFileSystem(tmp_path))
     stored = fdb.load_database(fdb.LocalFileSystem(tmp_path),
