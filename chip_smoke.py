@@ -30,7 +30,7 @@ every comparison below shows whether they hold); builds the kernels from
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C. K-A is only checked here and timed in
-   phase 4.
+   phase 5.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -53,10 +53,31 @@ every comparison below shows whether they hold); builds the kernels from
    the bucketed one; the masked layout's time for all 1,000 queries and
    its peak device memory, which must stay within its budget, are
    printed.
-4. K-A's times, after the paths, so that ``torch.profiler`` has not run
+4. Filters, range search and updates, on phase 2's database and phase
+   3's bucketed SIFT index. Filters: ``tenant`` (row % 10, uint64) and
+   ``lang`` (one of four strings, from the seed) set on every row through
+   ``set_attribute_at``; four filters (10%, about 2.5%, an ``In | Range``
+   and one that matches nothing) through ``query_batch(where=)`` with and
+   without rerank and ``query(where=)``, each result checked against the
+   filter's mask computed apart in numpy, against the CPU plain path, and
+   the masked layout against the bucketed one under the same ``row_mask``;
+   each filter's warm times and its column cache's first-use cost.
+   Range: ``DeviceIndex.query_range`` of the 64 queries (radius the median
+   midpoint of the 10th and 11th distances) against the CPU path and the
+   masked layout, each query's ``query_range(limit=10)`` against its own
+   top-10 under the radius, a filtered ``Database.query_range``, and 1000
+   SIFT queries on buckets at nprobe=10 (64 against the CPU path). A
+   row may fall on the other side of the radius, or of a full limit, only
+   within the tolerance of it. Updates: ``add_vectors`` of 10,000 unit
+   rows; each of 64 finds itself in its top 10, results equal to the CPU
+   path after the add; ``encode`` of 10,000 built rows (the rows that
+   differ from the build's assignment are printed); ``remove_vectors`` of
+   the 10,000 gives back the build's host arrays and phase 2's results.
+5. K-A's times, after the paths, so that ``torch.profiler`` has not run
    in the process while they were timed: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
-   version at the end of each path). K-A's calls last microseconds, less
+   version at the end of each path; phase 4's are the buckets after the
+   add). K-A's calls last microseconds, less
    than the host's time to issue one, so its time is the device's: the
    profiler's CUDA activity for the kernel, a launch, each call after a
    read of 256 MiB that evicts its inputs from the 50 MB L2 (``ms``), and
@@ -66,10 +87,10 @@ every comparison below shows whether they hold); builds the kernels from
    CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries) and read just after; every kernel a path runs must have run.
-The line before the last is the kernels' JSON record: a row per TPU
-kernel of the JAX package, with its counterpart's launches over the two
-paths, its time (``ms_by`` names the method; K-A's rows also carry
+queries, and phase 4) and read just after; every kernel a path runs must
+have run. The line before the last is the kernels' JSON record: a row per
+TPU kernel of the JAX package, with its counterpart's launches over the
+three paths, its time (``ms_by`` names the method; K-A's rows also carry
 ``warm_ms`` and ``host_ms``), its plain version's and its bound from this run's
 inputs: the larger of bytes over 3.35 TB/s and operations over the rate
 of the units the kernel runs on, the H100 SXM's published peaks (K-B,
@@ -96,6 +117,7 @@ N, M, P, D, C = 100_000, 1536, 100, 12, 256
 K_TOP, NPROBE, N_BATCH, N_SINGLE = 10, 5, 64, 8
 SIFT_N, SIFT_NQ, SIFT_M, SIFT_P, SIFT_D = 1_000_000, 1000, 128, 1024, 8
 SIFT_NPROBE, RERANK, N_CHECK = 10, 100, 64
+N_ADD, LANGS = 10_000, ("en", "es", "ja", "pt")
 RTOL, ATOL = 1e-4, 1e-5          # the query path's parity tolerance
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-3  # Lloyd sums: f32 atomics in any order
 TIE_REL = 1e-5                   # Lloyd picks may differ only this close
@@ -184,7 +206,7 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
 
 def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
     """K-A's ``call`` against its ``plain`` version (raises where they
-    disagree): the case phase 4 times."""
+    disagree): the case phase 5 times."""
     got, want = call(), plain()
     torch.cuda.synchronize()
     err = scan_error(torch, got, want)
@@ -581,8 +603,10 @@ def slice_run(torch, seed: int):
         want = ref.query(q[N_BATCH + i], k=K_TOP, nprobe=NPROBE)
         swapped += same_results(got, want, f"query[{i}]")
     log(f"results agree with the CPU plain path ({swapped} tie swaps)")
+    state = {"x": x, "q": q[:N_BATCH], "db": db, "ref": ref, "batch": batch}
     return launches, scan_at_main_path(torch, db._device_state(),
-                                       q[:N_BATCH], NPROBE, "the slice's")
+                                       q[:N_BATCH], NPROBE,
+                                       "the slice's"), state
 
 
 def check_build(db, x, p, d, c) -> None:
@@ -794,8 +818,283 @@ def sift_run(torch, seed: int):
         f"({swapped} tie swaps; {time.perf_counter() - t0:.3f} s)")
     require(peak <= masked.hbm_budget_bytes,
             f"the masked scan took {peak} bytes, over its budget")
+    state = {"index": index, "arrays": arrays, "q": q, "adc": adc}
     return launches, scan_at_main_path(torch, index, q, SIFT_NPROBE,
-                                       "the SIFT path's")
+                                       "the SIFT path's"), state
+
+
+# --- phase 4: filters, range search and updates ------------------------------
+
+def near(a: float, b: float) -> bool:
+    return abs(a - b) <= ATOL + RTOL * abs(b)
+
+
+def same_hits(got, want, radius: float, what: str, cap=None) -> int:
+    """Two range answers for one query, ``(rows, keys)`` ascending: the
+    rows both hold have keys within the tolerance (so the orders agree up
+    to ties), and a row only one holds has its key within the tolerance
+    of the radius or, under a ``cap`` that a side fills, of that side's
+    last key. Returns the number of such rows."""
+    (g_rows, g_keys), (w_rows, w_keys) = got, want
+    for keys in (g_keys, w_keys):
+        require(bool(np.all(np.diff(keys) >= 0)), f"{what}: not ascending")
+        require(bool(np.all(keys <= radius)), f"{what}: a key over the "
+                "radius")
+    edges = [radius] + [float(k[-1]) for k in (g_keys, w_keys)
+                        if cap is not None and len(k) == cap]
+    g, w = dict(zip(np.asarray(g_rows).tolist(), g_keys.tolist())), \
+        dict(zip(np.asarray(w_rows).tolist(), w_keys.tolist()))
+    for r in g.keys() & w.keys():
+        require(near(g[r], w[r]), f"{what}: row {r} key {g[r]} != {w[r]}")
+    only = [(r, k) for side, other in ((g, w), (w, g))
+            for r, k in side.items() if r not in other]
+    for r, k in only:
+        require(any(near(k, e) for e in edges),
+                f"{what}: row {r} (key {k}) is in one answer only")
+    return len(only)
+
+
+def hits(results, row_of):
+    """``QueryResult`` list as ``(rows, keys)`` arrays."""
+    return (np.array([row_of[r.vector_id] for r in results], np.int64),
+            np.array([r.squared_distance for r in results], np.float32))
+
+
+def headline_filters(ft, tenant, lang):
+    """The phase's filters, each with its mask computed apart in numpy:
+    tenant isolation (10%), a tenant and a language (about 2.5%), a
+    language pair or the first two tenants, and one that matches
+    nothing."""
+    pair = [LANGS[0], LANGS[2]]
+    return [
+        ("Eq(tenant, 3)", ft.Eq("tenant", 3), tenant == 3),
+        (f"Eq(tenant, 3) & Eq(lang, {LANGS[1]!r})",
+         ft.Eq("tenant", 3) & ft.Eq("lang", LANGS[1]),
+         (tenant == 3) & (lang == 1)),
+        (f"In(lang, {pair}) | Range(tenant, hi=1)",
+         ft.In("lang", pair) | ft.Range("tenant", hi=1),
+         np.isin(lang, [0, 2]) | (tenant <= 1)),
+        ("~Exists(tenant)", ~ft.Exists("tenant"), np.zeros(len(tenant),
+                                                           bool)),
+    ]
+
+
+def filters_part(ft, db, ref, masked, q, cases, row_of) -> None:
+    """Every filter through ``query_batch`` with and without rerank and
+    ``query``, against numpy's mask and the CPU plain path; the bucketed
+    and masked ``DeviceIndex`` under the same ``row_mask``."""
+    index = db._device_state()
+    for name, where, want_mask in cases:
+        db._invalidate_filters()
+        mask, first_ms = timed(lambda: db._filter_mask(where))
+        _, mask_ms = timed(lambda: db._filter_mask(where))
+        require(np.array_equal(mask, want_mask), f"{name}: mask differs "
+                "from numpy's")
+        db.query_batch(q, K_TOP, NPROBE, where=where)
+        db.query_batch(q, K_TOP, NPROBE, rerank=RERANK, where=where)
+        got, ms = timed(lambda: db.query_batch(q, K_TOP, NPROBE,
+                                               where=where))
+        got_rr, rr_ms = timed(lambda: db.query_batch(
+            q, K_TOP, NPROBE, rerank=RERANK, where=where))
+        one, one_ms = timed(lambda: db.query(q[0], K_TOP, NPROBE,
+                                             where=where))
+        for rs in got + got_rr + [one]:
+            require(all(want_mask[row_of[r.vector_id]] for r in rs),
+                    f"{name}: a result fails the filter")
+        if not want_mask.any():
+            require(not any(got + got_rr + [one]),
+                    f"{name}: results for a filter that matches nothing")
+        swapped = 0
+        for rr, mine in ((None, got), (RERANK, got_rr)):
+            want = ref.query_batch(q, K_TOP, NPROBE, rerank=rr, where=where)
+            for b in range(len(q)):
+                swapped += same_results(mine[b], want[b],
+                                        f"{name} rerank={rr} [{b}]")
+        swapped += same_results(one, ref.query(q[0], K_TOP, NPROBE,
+                                               where=where), f"{name} query")
+        b_d, b_r, b_p = index.query(q, K_TOP, NPROBE, row_mask=mask)
+        m_d, m_r, m_p = masked.query(q, K_TOP, NPROBE, row_mask=mask)
+        require(np.array_equal(b_p, m_p), f"{name}: layouts probed apart")
+        swapped += same_arrays((m_d, m_r), (b_d, b_r), f"{name} masked")
+        log(f"filter {name}: {int(want_mask.sum())} rows; mask first use "
+            f"{first_ms:.3f} ms (column cache built), cached {mask_ms:.3f} "
+            f"ms; warm query_batch({len(q)}) {ms:.3f} ms, rerank={RERANK} "
+            f"{rr_ms:.3f} ms, query {one_ms:.3f} ms; "
+            f"{sum(map(len, got))} results, equal to the CPU path and the "
+            f"masked layout ({swapped} tie swaps)")
+
+
+def range_part(ft, db, ref, masked, q, row_of, tenant, sift) -> None:
+    """Range search at the headline (bucketed and masked, against the CPU
+    path and against each query's top-10) and at the SIFT buckets."""
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    index = db._device_state()
+    d11 = host_arrays(db.query_batch(q, K_TOP + 1, NPROBE), row_of,
+                      K_TOP + 1)[0]
+    radius = float(np.median((d11[:, K_TOP - 1] + d11[:, K_TOP]) / 2))
+    index.query_range(q, radius, NPROBE)
+    ms = []
+    for _ in range(3):
+        got, t = timed(lambda: index.query_range(q, radius, NPROBE))
+        ms.append(t)
+    edge = 0
+    for what, other in (("the CPU path", ref._device_state()),
+                        ("the masked layout", masked)):
+        want = other.query_range(q, radius, NPROBE)
+        for b in range(len(q)):
+            edge += same_hits(got[b], want[b], radius,
+                              f"range vs {what} [{b}]")
+    top = db.query_batch(q, K_TOP, NPROBE)
+    for b in range(len(q)):
+        lim = db.query_range(q[b], radius, NPROBE, limit=K_TOP)
+        near_top = [r for r in top[b] if r.squared_distance <= radius]
+        edge += same_hits(hits(lim, row_of), hits(near_top, row_of),
+                          radius, f"range limit={K_TOP} vs top-{K_TOP} [{b}]",
+                          cap=K_TOP)
+    where, n_hits = ft.Eq("tenant", 3), 0
+    for b in range(8):
+        res = db.query_range(q[b], radius, NPROBE, where=where)
+        require(all(tenant[row_of[r.vector_id]] == 3 for r in res),
+                "filtered range: a row fails the filter")
+        edge += same_hits(hits(res, row_of), hits(ref.query_range(
+            q[b], radius, NPROBE, where=where), row_of), radius,
+            f"filtered range [{b}]")
+        n_hits += len(res)
+    require(n_hits > 0, "filtered range found nothing")
+    log(f"range, headline: radius {radius:.6f} (median over {len(q)} "
+        f"queries of the 10th/11th midpoint); DeviceIndex.query_range("
+        f"{len(q)}) warm {statistics.median(ms):.3f} ms (median of 3: "
+        f"{', '.join(f'{v:.3f}' for v in ms)}), "
+        f"{sum(len(r) for r, _ in got)} hits; equal to the CPU path, the "
+        f"masked layout and each query's top-{K_TOP} under the radius; "
+        f"Eq(tenant, 3) range {n_hits} hits over 8 queries ({edge} rows "
+        "at the radius or cap)")
+
+    s_index, s_q = sift["index"], sift["q"]
+    s_radius = float(np.median(sift["adc"][0][:, K_TOP - 1]))
+    kw = dict(radius=s_radius, nprobe=SIFT_NPROBE)
+    _, s_first = timed(lambda: s_index.query_range(s_q, **kw))
+    s_ms = []
+    for _ in range(3):
+        s_got, t = timed(lambda: s_index.query_range(s_q, **kw))
+        s_ms.append(t)
+    cpu = DeviceIndex(*sift["arrays"], layout="bucketed", device="cpu")
+    s_want = cpu.query_range(s_q[:N_CHECK], **kw)
+    edge = sum(same_hits(s_got[b], s_want[b], s_radius, f"SIFT range [{b}]")
+               for b in range(N_CHECK))
+    log(f"range, SIFT buckets: radius {s_radius:.3f} (median 10th "
+        f"distance); DeviceIndex(layout='bucketed').query_range({len(s_q)},"
+        f" nprobe={SIFT_NPROBE}) first {s_first:.3f} ms, warm "
+        f"{statistics.median(s_ms):.3f} ms (median of 3: "
+        f"{', '.join(f'{v:.3f}' for v in s_ms)}), "
+        f"{sum(len(r) for r, _ in s_got)} hits, {N_CHECK} equal to the CPU "
+        f"path ({edge} rows at the radius)")
+
+
+def updates_part(torch, ft, db, x, q, batch, tenant, seed, row_of):
+    """``add_vectors`` of N_ADD unit rows, queries against the CPU path,
+    ``encode`` of built rows, then ``remove_vectors`` back to the build.
+    Returns the index the add gave (its buckets, for K-A's check)."""
+    from flechasdb_tpu_torch.ops.encode import encode
+    rng = np.random.default_rng(seed + 1)
+    new = rng.standard_normal((N_ADD, M), dtype=np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    before = (db.partition_indices, db.codes, db.residues,
+              list(db.vector_ids), dict(db.attribute_table))
+    l0 = db._device_state().buckets.codes.shape[2]
+    ids, add_ms = timed(lambda: db.add_vectors(new, seed=seed))
+    require(db._dev is None and db._dev_orig is None,
+            "add_vectors kept the old device index")
+    got_new, first_ms = timed(lambda: db.query_batch(new[:N_BATCH], K_TOP,
+                                                     NPROBE))
+    grown = db._device_state()
+    _, warm_ms = timed(lambda: db.query_batch(new[:N_BATCH], K_TOP, NPROBE))
+    for i, rs in enumerate(got_new):
+        require(ids[i] in [r.vector_id for r in rs],
+                f"added row {i} is not in its own top {K_TOP}")
+    ref = ft.Database(**ft.to_arrays(db), device="cpu")
+    where = ft.Eq("tenant", 3)
+    swapped = 0
+    for qs, kw in ((new[:N_BATCH], {}), (q, {}), (q, {"where": where})):
+        mine = db.query_batch(qs, K_TOP, NPROBE, **kw)
+        want = ref.query_batch(qs, K_TOP, NPROBE, **kw)
+        for b in range(len(qs)):
+            swapped += same_results(mine[b], want[b], f"after add [{b}]")
+    for rs in mine:                     # the filtered queries, run last
+        require(all(r.vector_id in row_of and tenant[row_of[r.vector_id]]
+                    == 3 for r in rs), "a filtered query after the add "
+                "returned a row without the attribute")
+    log(f"add_vectors({N_ADD}): {add_ms:.3f} ms; bucket length {l0} -> "
+        f"{grown.buckets.codes.shape[2]}; query_batch({N_BATCH}) of added "
+        f"rows first {first_ms:.3f} ms (rebuilds the device index), warm "
+        f"{warm_ms:.3f} ms; each finds itself in its top {K_TOP}; equal to "
+        f"the CPU path, filtered too ({swapped} tie swaps)")
+
+    xe = torch.tensor(x[:N_ADD], device="cuda")
+    pidx, codes = (t.cpu().numpy() for t in encode(
+        xe, torch.tensor(db.partition_centroids, device="cuda"),
+        torch.tensor(db.codebooks, device="cuda")))
+    same_p = pidx == before[0][:N_ADD]
+    other_c = (codes != before[1][:N_ADD])[same_p].any(axis=1)
+    log(f"encode of {N_ADD} built rows on the card: {int((~same_p).sum())} "
+        f"differ from the build's partition, {int(other_c.sum())} of the "
+        "others in a code (no threshold: the build assigns with 3xTF32 "
+        "against its pre-update centroids, encode in full f32)")
+
+    n, rm_ms = timed(lambda: db.remove_vectors(ids))
+    require(n == N_ADD, f"remove_vectors removed {n}")
+    for name, a, b in zip(("partition_indices", "codes", "residues"),
+                          (db.partition_indices, db.codes, db.residues),
+                          before):
+        require(np.array_equal(a, b), f"{name} differ from before the add")
+    require(db.vector_ids == before[3] and db.attribute_table == before[4],
+            "ids or attributes differ from before the add")
+    after = db.query_batch(q, K_TOP, NPROBE)
+    swapped = exact = 0
+    for b in range(len(q)):
+        swapped += same_results(after[b], batch[b], f"after remove [{b}]")
+        exact += sum(g.squared_distance == w.squared_distance
+                     and g.vector_id == w.vector_id
+                     for g, w in zip(after[b], batch[b]))
+    log(f"remove_vectors({N_ADD}): {rm_ms:.3f} ms; host arrays equal to "
+        f"before the add; query_batch({len(q)}) gives phase 2's results "
+        f"({exact} of {sum(map(len, batch))} distances bit-equal, "
+        f"{swapped} tie swaps)")
+    return grown
+
+
+def updates_run(torch, seed: int, head: dict, sift: dict):
+    """Phase 4 over phase 2's database and phase 3's SIFT index: the launch
+    counts are zeroed before it and read after it."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    db, ref, x, q = head["db"], head["ref"], head["x"], head["q"]
+    rng = np.random.default_rng(seed + 2)
+    tenant = np.arange(N) % 10
+    lang = rng.integers(0, len(LANGS), N)
+    row_of = {vid: i for i, vid in enumerate(db.vector_ids)}
+    t0 = time.perf_counter()
+    for i in range(N):
+        db.set_attribute_at(i, ("tenant", int(tenant[i])))
+        db.set_attribute_at(i, ("lang", LANGS[lang[i]]))
+    log(f"set_attribute_at x {2 * N}: {time.perf_counter() - t0:.3f} s")
+    masked = DeviceIndex(db.partition_centroids, db.codebooks,
+                         db.codes.astype(np.int32), db.partition_indices,
+                         layout="masked", device="cuda")
+
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    filters_part(ft, db, ref, masked, q, headline_filters(ft, tenant, lang),
+                 row_of)
+    range_part(ft, db, ref, masked, q, row_of, tenant, sift)
+    grown = updates_part(torch, ft, db, x, q, head["batch"], tenant, seed,
+                         row_of)
+    launches = dict(_kernels.LAUNCHES)
+    log(f"launches over phase 4: {launches}")
+    require(launches["adc_scan"] > 0, "phase 4 launched no adc_scan")
+    return launches, scan_at_main_path(torch, grown, q, NPROBE,
+                                       "the updated headline's")
 
 
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
@@ -849,20 +1148,25 @@ def main() -> None:
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
-    slice_launches, a_main = slice_run(torch, args.seed)
+    slice_launches, a_main, head = slice_run(torch, args.seed)
     log(f"phase 2 (100k x 1536 slice): {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    sift_launches, a_sift = sift_run(torch, args.seed)
+    sift_launches, a_sift, sift = sift_run(torch, args.seed)
     log(f"phase 3 (SIFT path): {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift]
+    upd_launches, a_upd = updates_run(torch, args.seed, head, sift)
+    log(f"phase 4 (filters, range search, updates): "
+        f"{time.perf_counter() - t0:.3f} s")
+    del head, sift
+    t0 = time.perf_counter()
+    a_cases += [a_main, a_sift, a_upd]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 4 (K-A times): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 5 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    launches = {k: slice_launches[k] + sift_launches[k]
+    launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
                 for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [

@@ -1,7 +1,8 @@
 """flechasdb-tpu on PyTorch and CUDA.
 
 The port of the JAX package's build → query paths to PyTorch (the
-bucketed and masked layouts, exact rerank), with hand-written CUDA kernels
+bucketed and masked layouts, exact rerank, attribute filters, range search
+and updates of the in-memory database), with hand-written CUDA kernels
 for an NVIDIA H100 (``sm_90a``):
 
 * K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``), also
@@ -16,7 +17,8 @@ each kernel's plain PyTorch version runs instead; on a CUDA tensor the
 kernel launches or the call raises. The port imports neither jax nor the
 JAX package (whose ``__init__`` imports jax): it carries copies of the
 few jax-free host helpers it needs (:mod:`.errors`, :mod:`.events`,
-:mod:`.host`, :mod:`.attributes`), with the same names and messages.
+:mod:`.host`, :mod:`.attributes`, :mod:`.filters`), with the same names
+and messages.
 """
 
 from .errors import (
@@ -32,6 +34,7 @@ from .errors import (
 from .attributes import AttributeTable, Attributes, AttributeValue
 from .build import Database, DatabaseBuilder, QueryResult
 from .convert import from_jax_arrays, to_arrays
+from .filters import Eq, Exists, Filter, In, Range
 
 __all__ = [
     "AttributeTable",
@@ -39,13 +42,18 @@ __all__ = [
     "AttributeValue",
     "Database",
     "DatabaseBuilder",
+    "Eq",
+    "Exists",
+    "Filter",
     "FlechasError",
     "InvalidArgs",
     "InvalidContext",
     "InvalidData",
     "IOError_",
+    "In",
     "ProtobufError",
     "QueryResult",
+    "Range",
     "VerificationFailure",
     "from_jax_arrays",
     "to_arrays",

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import uuid as _uuid
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,8 @@ from ._roadmap import not_ported
 from .attributes import AttributeValue, check_attribute_value
 from .errors import InvalidArgs
 from .events import EventHandler, _noop
-from .host import as_vector_set, check_metric, normalize_rows
+from .host import as_vector_set, check_metric, check_range_args, \
+    normalize_rows
 from .ops import kmeans
 from .partitions import partition
 
@@ -201,7 +202,8 @@ class DatabaseBuilder:
 @dataclass
 class Database:
     """In-memory database (``build.rs:156-286``): the JAX package's numpy
-    fields, served from a device index built at the first query."""
+    fields, served from a device index built at the first query (and
+    again after :meth:`add_vectors` or :meth:`remove_vectors`)."""
     vector_size: int
     num_partitions: int
     num_divisions: int
@@ -220,6 +222,7 @@ class Database:
     _local_idx: Optional[np.ndarray] = field(default=None, repr=False)
     _dev: Optional[object] = field(default=None, repr=False)
     _dev_orig: Optional[torch.Tensor] = field(default=None, repr=False)
+    _filter_cache: Optional[object] = field(default=None, repr=False)
 
     @property
     def num_vectors(self) -> int:
@@ -243,11 +246,73 @@ class Database:
         return (self.residues[i]
                 + self.partition_centroids[self.partition_indices[i]])
 
-    def add_vectors(self, vs, vector_ids=None, seed=None):
-        raise not_ported("add_vectors", 15)
+    # -- updates (the JAX package's build.py:417-491) ------------------------
 
-    def remove_vectors(self, vector_ids):
-        raise not_ported("remove_vectors", 15)
+    def add_vectors(self, vs,
+                    vector_ids: Optional[List[_uuid.UUID]] = None,
+                    seed: Optional[int] = None) -> List[_uuid.UUID]:
+        """Adds vectors without retraining: each goes to its nearest
+        partition and is PQ-encoded with the existing codebooks
+        (:func:`.ops.encode.encode`, on this database's device). New ids
+        come from ``seed`` as the JAX package draws them. The next query
+        rebuilds the device index."""
+        from .ops.encode import encode
+
+        if self.rotation is not None:
+            raise not_ported("An OPQ rotation", 13)
+        x = as_vector_set(vs, self.vector_size)
+        if self.metric == "cosine":
+            x = normalize_rows(x)
+        if vector_ids is None:
+            vector_ids = _make_uuids(len(x), np.random.default_rng(seed))
+        if len(vector_ids) != len(x):
+            raise InvalidArgs(
+                f"{len(vector_ids)} IDs for {len(x)} vectors")
+        pidx, codes = (t.cpu().numpy() for t in encode(
+            torch.tensor(x, device=self.device),
+            torch.tensor(self.partition_centroids, device=self.device),
+            torch.tensor(self.codebooks, device=self.device)))
+        self.partition_indices = np.concatenate(
+            [self.partition_indices, pidx.astype(np.int32)])
+        self.codes = np.concatenate([self.codes, codes.astype(np.uint32)])
+        if self.residues is not None:
+            res = x - self.partition_centroids[pidx]
+            self.residues = np.concatenate([self.residues, res])
+        self.vector_ids.extend(vector_ids)
+        self._changed()
+        return list(vector_ids)
+
+    def remove_vectors(self, vector_ids: Iterable[_uuid.UUID]) -> int:
+        """Removes vectors, and their attributes, by id; returns the number
+        removed. An unknown id raises :class:`InvalidArgs`."""
+        doomed = set(vector_ids)
+        if not doomed:
+            return 0
+        row_of = {vid: i for i, vid in enumerate(self.vector_ids)}
+        missing = [vid for vid in doomed if vid not in row_of]
+        if missing:
+            raise InvalidArgs(f"no such vector ID: {missing[0]}")
+        keep = np.ones(self.num_vectors, bool)
+        keep[[row_of[vid] for vid in doomed]] = False
+        self.vector_ids = [vid for vid, kp in zip(self.vector_ids, keep)
+                           if kp]
+        self.partition_indices = self.partition_indices[keep]
+        self.codes = self.codes[keep]
+        if self.residues is not None:
+            self.residues = self.residues[keep]
+        for vid in doomed:
+            self.attribute_table.pop(vid, None)
+        self._changed()
+        return len(doomed)
+
+    def _changed(self) -> None:
+        """Drops what was derived from the rows: the device index, the
+        originals on the device, the local indices and the filter
+        columns."""
+        self._dev = None
+        self._dev_orig = None
+        self._local_idx = None
+        self._invalidate_filters()
 
     # -- attributes (build.rs:228-285) --------------------------------------
 
@@ -267,7 +332,25 @@ class Database:
         value = check_attribute_value(value)
         vid = self.vector_ids[i]
         self.attribute_table.setdefault(vid, {})[str(key)] = value
-        # No filter cache to invalidate: filters are not ported (item 10).
+        self._invalidate_filters()     # the cached columns are stale now
+
+    # -- attribute filters (the JAX package's build.py:513-524) -------------
+
+    def _invalidate_filters(self) -> None:
+        if self._filter_cache is not None:
+            self._filter_cache.invalidate()
+
+    def _filter_mask(self, where) -> Optional[np.ndarray]:
+        """``where`` evaluated on the host to a bool row mask ``[N]``
+        (:mod:`.filters`; columns cached until the rows or attributes
+        change), or ``None`` for no filter."""
+        from .filters import ColumnCache, evaluate_mask
+        if where is None:
+            return None
+        if self._filter_cache is None:
+            self._filter_cache = ColumnCache()
+        return evaluate_mask(where, self.vector_ids, self.attribute_table,
+                             self._filter_cache)
 
     # -- queries (build.rs:293-382) ------------------------------------------
 
@@ -303,17 +386,20 @@ class Database:
     def query_with_events(self, v, k: int, nprobe: int,
                           events: EventHandler,
                           where=None) -> List[QueryResult]:
-        """Single-vector k-NN (``build.rs:307-340``)."""
-        if where is not None:
-            raise not_ported("where= (attribute filters)", 10)
+        """Single-vector k-NN (``build.rs:307-340``). ``where`` (a
+        :class:`.filters.Filter`) keeps only the vectors whose attributes
+        satisfy it: the k nearest matching vectors in the probed
+        partitions."""
         self._validate_query(k, nprobe)
         v = np.asarray(v, dtype=np.float32).reshape(1, -1)
         if v.shape[1] != self.vector_size:
             raise InvalidArgs(
                 f"query vector size {v.shape[1]} != {self.vector_size}")
         v = self._prep_queries(v)
+        mask = self._filter_mask(where)
         events(ev.StartingPartitionSelection())
-        dists, rows, probed = self._device_state().query(v, k, nprobe)
+        dists, rows, probed = self._device_state().query(v, k, nprobe,
+                                                         row_mask=mask)
         dists, rows, probed = dists[0], rows[0], probed[0]
         events(ev.FinishedPartitionSelection())
         for pi in probed:
@@ -331,17 +417,19 @@ class Database:
 
         ``rerank``: re-score the top ``rerank`` (>= k) ADC candidates with
         exact distances against the original vectors (``residues +
-        centroids``, kept on the device) and return the best ``k``."""
-        if where is not None:
-            raise not_ported("where= (attribute filters)", 10)
+        centroids``, kept on the device) and return the best ``k``.
+        ``where``: an attribute filter, applied before the top-k (so before
+        rerank: every candidate matches)."""
         self._validate_query(k, nprobe)
         vs = as_vector_set(vs)
         if vs.shape[1] != self.vector_size:
             raise InvalidArgs(
                 f"query vector size {vs.shape[1]} != {self.vector_size}")
         vs = self._prep_queries(vs)
+        mask = self._filter_mask(where)
         if rerank is None:
-            dists, rows, _ = self._device_state().query(vs, k, nprobe)
+            dists, rows, _ = self._device_state().query(vs, k, nprobe,
+                                                        row_mask=mask)
         else:
             if rerank < k:
                 raise InvalidArgs(f"rerank ({rerank}) must be >= k ({k})")
@@ -349,12 +437,35 @@ class Database:
                 raise InvalidArgs("rerank requires retained residues")
             dists, rows = self._device_state().query_rerank(
                 vs, self._device_originals(), k=k, nprobe=nprobe,
-                rerank=rerank)
+                rerank=rerank, row_mask=mask)
         return [self._to_results(dists[b], rows[b]) for b in range(len(vs))]
 
     def query_range(self, v, radius: float, nprobe: int,
-                    limit: Optional[int] = None, where=None):
-        raise not_ported("query_range", 11)
+                    limit: Optional[int] = None,
+                    where=None) -> List[QueryResult]:
+        """Range search: every vector in the ``nprobe`` nearest partitions
+        whose ranking key is ``<= radius``, ascending. The key is what
+        ``QueryResult.squared_distance`` reports: squared L2 for l2 and
+        cosine (``2 − 2·cos``), the negated inner product for dot.
+        ``limit`` keeps the nearest ``limit``; ``where`` filters on
+        attributes."""
+        check_range_args(radius, nprobe, self.num_partitions)
+        v = np.asarray(v, dtype=np.float32).reshape(1, -1)
+        if v.shape[1] != self.vector_size:
+            raise InvalidArgs(
+                f"query vector size {v.shape[1]} != {self.vector_size}")
+        v = self._prep_queries(v)
+        mask = self._filter_mask(where)
+        (rows, keys), = self._device_state().query_range(
+            v, radius, nprobe, row_mask=mask)
+        if limit is not None:
+            rows, keys = rows[:limit], keys[:limit]
+        local = self.local_indices
+        return [QueryResult(partition_index=int(self.partition_indices[r]),
+                            vector_id=self.vector_ids[r],
+                            vector_index=int(local[r]),
+                            squared_distance=float(key))
+                for r, key in zip(rows.tolist(), keys.tolist())]
 
     def _validate_query(self, k: int, nprobe: int) -> None:
         if k <= 0:

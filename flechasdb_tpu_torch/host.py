@@ -1,9 +1,9 @@
 """The JAX package's jax-free host helpers that the slice needs, with the
 same behaviour and messages: ``vector.as_vector_set``,
-``metrics.check_metric``/``normalize_rows`` and
-``serving._choose_layout``. A copy, for the reason given in
-:mod:`.errors`; ``tests/test_torch_slice.py`` holds each against its
-original.
+``metrics.check_metric``/``normalize_rows``, ``serving._choose_layout``
+and ``stored.check_range_args``. A copy, for the reason given in
+:mod:`.errors`; ``tests/test_torch_slice.py`` and
+``tests/test_torch_range.py`` hold each against its original.
 """
 
 from __future__ import annotations
@@ -97,3 +97,16 @@ def choose_layout(p: int, pidx: np.ndarray, n: int) -> str:
     counts = np.bincount(pidx, minlength=p) if len(pidx) else [1]
     l_pad = bucket_len(counts)
     return "bucketed" if p * l_pad <= PAD_LIMIT * max(n, 128) else "masked"
+
+
+def check_range_args(radius, nprobe: int, num_partitions: int) -> None:
+    """``query_range``'s argument checks: a finite radius, and ``0 <
+    nprobe <= num_partitions``."""
+    if not np.isfinite(radius):
+        raise InvalidArgs(f"radius must be finite: {radius}")
+    if nprobe <= 0:
+        raise InvalidArgs(f"nprobe must be positive: {nprobe}")
+    if nprobe > num_partitions:
+        raise InvalidArgs(
+            f"nprobe {nprobe} exceeds the number of partitions"
+            f" {num_partitions}")

@@ -8,6 +8,7 @@ The JAX package runs it in XLA, outside any Pallas kernel; here it is
 PyTorch gathers and full-f32 products. Top-nprobe is a stable ascending
 sort and top-k an integer top-k over (key, row) pairs
 (:func:`smallest_k`); both keep ``lax.top_k``'s lower-index rule on ties.
+Range search (:func:`range_masked_scan`) returns every row's key instead.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from typing import Optional
 
 import torch
 
-from .._roadmap import not_ported
 from .distance import full_f32, sqdist
 
 
@@ -115,6 +115,23 @@ def smallest_k(keys: torch.Tensor, k: int,
     return keys.gather(1, idx), idx
 
 
+def _probed_keys(q: torch.Tensor, centroids: torch.Tensor,
+                 codebooks: torch.Tensor, codes: torch.Tensor,
+                 pidx: torch.Tensor, row_mask: Optional[torch.Tensor],
+                 nprobe: int, metric: str,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(vdist [B, N], probed [B, nprobe])``: every row's key, ``+inf``
+    in the partitions not probed and where ``row_mask`` is False."""
+    vdist, coarse = masked_scan_keys(q, centroids, codebooks, codes, pidx,
+                                     metric)
+    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+    keep = torch.zeros_like(coarse, dtype=torch.bool).scatter_(
+        1, probed, True)[:, pidx.long()]
+    if row_mask is not None:
+        keep &= row_mask[None, :]
+    return vdist.masked_fill_(~keep, float("inf")), probed
+
+
 def query_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
                       codebooks: torch.Tensor, codes: torch.Tensor,
                       pidx: torch.Tensor,
@@ -123,19 +140,28 @@ def query_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched IVF-PQ k-NN over the flat layout: ``(distances [B, k], rows
     [B, k] int32, probed [B, nprobe] int32)``, ``+inf`` past the reachable
-    vectors."""
-    if row_mask is not None:
-        raise not_ported("row_mask (attribute filters)", 10)
+    vectors. ``row_mask [N] bool`` (optional) excludes the rows whose
+    entry is False (attribute filters, :mod:`..filters`)."""
     n = codes.shape[0]
-    vdist, coarse = masked_scan_keys(q, centroids, codebooks, codes, pidx,
-                                     metric)
-    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-    selected = torch.zeros_like(coarse, dtype=torch.bool).scatter_(
-        1, probed, True)
-    vdist.masked_fill_(~selected[:, pidx.long()], float("inf"))
+    vdist, probed = _probed_keys(q, centroids, codebooks, codes, pidx,
+                                 row_mask, nprobe, metric)
     kk = min(k, n)
     dist, rows = smallest_k(vdist, kk)
     if kk < k:
         dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
         rows = torch.nn.functional.pad(rows, (0, k - kk))
     return dist, rows.to(torch.int32), probed.to(torch.int32)
+
+
+def range_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
+                      codebooks: torch.Tensor, codes: torch.Tensor,
+                      pidx: torch.Tensor,
+                      row_mask: Optional[torch.Tensor] = None, *,
+                      nprobe: int, metric: str = "l2",
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Range-search candidates on the flat layout: ``(keys [B, N], probed
+    [B, nprobe] int32)``, non-candidates at ``+inf``; column ``i`` is
+    corpus row ``i``. The caller thresholds on the host."""
+    vdist, probed = _probed_keys(q, centroids, codebooks, codes, pidx,
+                                 row_mask, nprobe, metric)
+    return vdist, probed.to(torch.int32)

@@ -7,8 +7,10 @@ only its ``nprobe`` buckets:
 
 1. coarse scores and a stable ascending sort pick ``probed [B, nprobe]``,
 2. ADC tables for the probed partitions only, ``[B, nprobe, D, C]``,
-3. the bucket scan (kernel K-A on the card, :mod:`.scan`),
-4. a stable ascending sort over ``[B, nprobe·L]`` for the k best.
+3. the bucket scan (kernel K-A on the card, :mod:`.scan`), then the
+   attribute filter's row mask where one is given,
+4. a stable ascending sort over ``[B, nprobe·L]`` for the k best, or, for
+   range search (:func:`range_bucketed`), every candidate to the host.
 
 ``torch.topk`` promises no order among equal values, while the JAX
 package's ``lax.top_k`` breaks ties to the lower index; a stable sort
@@ -22,7 +24,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .._roadmap import not_ported
 from ..host import bucket_len
 from .adc import _dot_tables, coarse_scores
 from .distance import full_f32
@@ -98,19 +99,11 @@ def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
     return torch.clamp_min(rr[..., None] + cc[None, None] - 2.0 * rc, 0.0)
 
 
-def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
-                   codebooks: torch.Tensor, buckets: Buckets,
-                   row_mask: Optional[torch.Tensor] = None, *,
-                   k: int, nprobe: int, metric: str = "l2",
-                   approx: bool | float = False,
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched pruned IVF-PQ k-NN: ``(distances [B, k], rows [B, k] int32,
-    probed [B, nprobe] int32)``, ``+inf`` past the reachable vectors.
-
-    ``approx`` is accepted and answered exactly, as the JAX package does
-    off the TPU. ``row_mask`` (attribute filters) is not ported yet."""
-    if row_mask is not None:
-        raise not_ported("row_mask (attribute filters)", 10)
+def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
+                codebooks: torch.Tensor, buckets: Buckets, nprobe: int,
+                metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steps 1–3: ``(vdist [B, nprobe, L], probed [B, nprobe])``. K-A
+    takes the buckets' lengths, so pad slots come back ``+inf``."""
     b = q.shape[0]
     d, c, _ = codebooks.shape
     l = buckets.codes.shape[2]
@@ -123,6 +116,35 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
         buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
         probed.reshape(-1).to(torch.int32).contiguous(),
         lens.reshape(-1).contiguous(), d=d)                 # [B·nprobe, L]
+    return vdist.reshape(b, nprobe, l), probed
+
+
+def _kept(rows: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """``row_mask`` at each slot's corpus row (pad slots read row 0: their
+    keys are ``+inf`` whatever it says)."""
+    return row_mask[rows.clamp_min(0).long()]
+
+
+def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
+                   codebooks: torch.Tensor, buckets: Buckets,
+                   row_mask: Optional[torch.Tensor] = None, *,
+                   k: int, nprobe: int, metric: str = "l2",
+                   approx: bool | float = False,
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched pruned IVF-PQ k-NN: ``(distances [B, k], rows [B, k] int32,
+    probed [B, nprobe] int32)``, ``+inf`` past the reachable vectors.
+
+    ``row_mask [N] bool`` (optional, on the buckets' device) excludes the
+    corpus rows whose entry is False (attribute filters, :mod:`..filters`).
+    ``approx`` is accepted and answered exactly, as the JAX package does
+    off the TPU."""
+    b = q.shape[0]
+    l = buckets.codes.shape[2]
+    vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
+                                metric)
+    if row_mask is not None:                  # one gather and select
+        vdist = vdist.masked_fill(~_kept(buckets.rows[probed], row_mask),
+                                  float("inf"))
 
     kk = min(k, nprobe * l)
     best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
@@ -133,3 +155,29 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
         dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
         rows = torch.nn.functional.pad(rows, (0, k - kk))
     return dist, rows.to(torch.int32), probed.to(torch.int32)
+
+
+def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
+                   codebooks: torch.Tensor, buckets: Buckets,
+                   row_mask: Optional[torch.Tensor] = None, *,
+                   nprobe: int, metric: str = "l2",
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Range-search candidates: every probed vector's ADC key, ``(keys [B,
+    nprobe·L], rows [B, nprobe·L] int32, probed [B, nprobe] int32)`` in
+    probe order, then slot; pad slots and filtered rows are ``+inf`` and
+    row ``-1``. The same probe selection and K-A scan as
+    :func:`query_bucketed`, with no top-k: the caller thresholds on the
+    host. The JAX package scans without lengths and masks ``slot <
+    length`` afterwards; here K-A takes the lengths and writes the pad
+    slots' ``+inf`` itself (the keys are the same), and a pad slot's row
+    is already ``-1`` in :class:`Buckets`."""
+    b = q.shape[0]
+    vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
+                                metric)
+    rows = buckets.rows[probed]                             # [B, nprobe, L]
+    if row_mask is not None:
+        drop = ~_kept(rows, row_mask)
+        vdist = vdist.masked_fill(drop, float("inf"))
+        rows = rows.masked_fill(drop, -1)
+    return (vdist.reshape(b, -1), rows.reshape(b, -1).to(torch.int32),
+            probed.to(torch.int32))

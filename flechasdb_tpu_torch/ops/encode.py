@@ -1,0 +1,32 @@
+"""Encoding new vectors against a built index (the JAX package's
+``ops/encode.py``).
+
+Nothing is retrained: a vector goes to its nearest partition centroid and
+its residual to the nearest codeword of each division, exactly as a query
+would see it. Both argmins are :func:`.distance.assign_chunked` (full-f32
+products, the first minimum on ties).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .distance import assign_chunked
+
+
+def encode(x: torch.Tensor, centroids: torch.Tensor,
+           codebooks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [N, M]``, ``centroids [P, M]``, ``codebooks [D, C, M/D]`` →
+    ``(pidx [N], codes [N, D])``, in the narrowest dtype that holds the
+    index range, as the JAX package returns them: ``uint16`` pidx when P
+    <= 65536, ``uint8`` codes when C <= 256, else ``int32``."""
+    n, _ = x.shape
+    p = centroids.shape[0]
+    d, c, sub = codebooks.shape
+    pidx = assign_chunked(x[None], centroids[None])[0][0]
+    residues = x - centroids[pidx.long()]
+    divided = residues.reshape(n, d, sub).transpose(0, 1)     # [D, N, m]
+    codes = assign_chunked(divided, codebooks)[0]              # [D, N]
+    pdt = torch.uint16 if p <= (1 << 16) else torch.int32
+    cdt = torch.uint8 if c <= 256 else torch.int32
+    return pidx.to(pdt), codes.T.to(cdt)

@@ -12,7 +12,10 @@ Two layouts, both returning the same results (global corpus rows):
   ``hbm_budget_bytes`` (:func:`_masked_limit`).
 
 Exact rerank (:meth:`DeviceIndex.query_rerank`) re-scores the top ADC
-candidates against the original vectors on the device.
+candidates against the original vectors on the device. Every query takes
+an optional ``row_mask [N] bool`` (attribute filters). Range search
+(:meth:`DeviceIndex.query_range`) scans as a query does and thresholds
+every candidate on the host.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import torch
 
 from ._roadmap import not_ported
 from .host import check_metric, choose_layout
-from .ops.adc import query_masked_scan
-from .ops.bucketed import bucketize, query_bucketed
+from .ops.adc import query_masked_scan, range_masked_scan
+from .ops.bucketed import bucketize, query_bucketed, range_bucketed
 from .ops.distance import full_f32
 
 #: Budget for the masked scan's per-batch transients (its ADC tables are
@@ -52,6 +55,31 @@ def _masked_limit(cent_shape, cb_shape, n: int, budget: int,
         per_query = max(per_query, 8 * (p * d * c + p * m),
                         4 * p * d * c + 8 * n)
     return max(1, (budget - 16 * n) // per_query)
+
+
+def _range_limit(nprobe: int, l: int, cb_shape, budget: int) -> int:
+    """Largest query batch whose bucketed range-scan transients fit
+    ``budget``: per query the probed tables ``[nprobe, D, C]`` f32 and the
+    keys and rows ``[nprobe, L]`` f32 and int32, twice (the JAX package's
+    rule)."""
+    d, c, _ = cb_shape
+    per_query = 4 * nprobe * (d * c + 4 * l)
+    return max(1, budget // per_query)
+
+
+def _range_host_tail(keys: np.ndarray, rows: np.ndarray,
+                     radius: float) -> list:
+    """Thresholds range-scan candidates (``+inf``: none) into one ``(rows
+    int64[], keys f32[])`` pair a query, keys ascending; a stable sort
+    keeps the candidates' order (probe, then slot; or corpus row) on
+    ties."""
+    out = []
+    for b in range(len(keys)):
+        hit = keys[b] <= radius
+        kb, rb = keys[b][hit], rows[b][hit]
+        order = np.argsort(kb, kind="stable")
+        out.append((rb[order].astype(np.int64), kb[order]))
+    return out
 
 
 @full_f32()
@@ -103,6 +131,7 @@ class DeviceIndex:
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout: {layout!r}")
         self.layout = layout
+        self.num_rows = len(codes)
         self.centroids = torch.tensor(
             np.asarray(centroids, np.float32), device=self.device)
         self.codebooks = torch.tensor(
@@ -124,6 +153,17 @@ class DeviceIndex:
                              self.codes.shape[0], self.hbm_budget_bytes,
                              self.metric)
 
+    def _row_mask(self, row_mask) -> Optional[torch.Tensor]:
+        """A numpy or tensor ``[N]`` mask as a bool tensor on this index's
+        device (uploaded once a call)."""
+        if row_mask is None:
+            return None
+        mask = torch.as_tensor(row_mask, dtype=torch.bool, device=self.device)
+        if mask.shape != (self.num_rows,):
+            raise ValueError(f"row_mask shape {tuple(mask.shape)} != "
+                             f"({self.num_rows},)")
+        return mask
+
     def _query(self, qd: torch.Tensor, k: int, nprobe: int, row_mask,
                approx: bool | float,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -144,9 +184,12 @@ class DeviceIndex:
               approx: bool | float = False,
               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Batched k-NN: ``q [B, M]`` → host ``(dists, rows, probed)``.
-        ``approx`` is answered exactly; ``row_mask`` is not ported."""
+        ``row_mask [N] bool`` (numpy or tensor) excludes the corpus rows
+        whose entry is False before the top-k; ``approx`` is answered
+        exactly."""
         qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
-        return _host(*self._query(qd, k, nprobe, row_mask, approx))
+        return _host(*self._query(qd, k, nprobe, self._row_mask(row_mask),
+                                  approx))
 
     def query_rerank(self, q: np.ndarray, originals: torch.Tensor, k: int,
                      nprobe: int, rerank: int, row_mask=None,
@@ -154,8 +197,44 @@ class DeviceIndex:
                      ) -> tuple[np.ndarray, np.ndarray]:
         """ADC query for the top ``rerank`` candidates, then their EXACT
         re-scoring against ``originals [N, M]`` (on this index's device),
-        both on the device: host ``(dists [B, k], rows [B, k])``."""
+        both on the device: host ``(dists [B, k], rows [B, k])``. Rows that
+        ``row_mask`` drops come out of the ADC pass at ``+inf`` and are
+        never candidates."""
         qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
-        adc, rows, _ = self._query(qd, rerank, nprobe, row_mask, approx)
+        adc, rows, _ = self._query(qd, rerank, nprobe,
+                                   self._row_mask(row_mask), approx)
         return _host(*_rerank_exact(qd, rows, torch.isfinite(adc), originals,
                                     k=k, metric=self.metric))
+
+    def query_range(self, q: np.ndarray, radius: float, nprobe: int,
+                    row_mask=None) -> list:
+        """Range search: for each query, ``(rows int64[], keys f32[])`` of
+        every probed vector whose ranking key is ``<= radius`` (squared
+        distance for L2 and cosine, negated inner product for dot),
+        ascending. The device scans; thresholding happens on the host, so
+        the whole candidate key array crosses. Query batches run in chunks
+        whose transients fit ``hbm_budget_bytes`` (:func:`_range_limit` on
+        buckets, :func:`_masked_limit` on the flat layout), each chunk
+        thresholded as it arrives."""
+        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        mask = self._row_mask(row_mask)
+        out = []
+        if self.layout == "bucketed":
+            limit = _range_limit(nprobe, self.buckets.codes.shape[2],
+                                 tuple(self.codebooks.shape),
+                                 self.hbm_budget_bytes)
+            for i in range(0, len(qd), limit):
+                keys, rows, _ = range_bucketed(
+                    qd[i:i + limit], self.centroids, self.codebooks,
+                    self.buckets, mask, nprobe=nprobe, metric=self.metric)
+                out += _range_host_tail(*_host(keys, rows), radius)
+            return out
+        limit = self._masked_batch_limit()
+        for i in range(0, len(qd), limit):
+            keys, = _host(range_masked_scan(
+                qd[i:i + limit], self.centroids, self.codebooks, self.codes,
+                self.pidx, mask, nprobe=nprobe, metric=self.metric)[0])
+            rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
+                                   keys.shape)
+            out += _range_host_tail(keys, rows, radius)
+        return out

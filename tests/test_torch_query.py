@@ -207,10 +207,14 @@ def test_query_bucketed_approx_is_answered_exactly():
                                 nprobe=3, approx=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bucketed.query_bucketed(q, _t(centroids), _t(codebooks), bk,
-                                torch.ones(600, dtype=torch.bool), k=8,
-                                nprobe=3)
+    mask = torch.from_numpy(rng.random(600) < 0.5)
+    a = bucketed.query_bucketed(q, _t(centroids), _t(codebooks), bk, mask,
+                                k=8, nprobe=3)
+    b = bucketed.query_bucketed(q, _t(centroids), _t(codebooks), bk, mask,
+                                k=8, nprobe=3, approx=0.9)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert mask[a[1].long()].all()
 
 
 @pytest.mark.parametrize("metric", ["l2", "dot", "cosine"])
@@ -228,10 +232,10 @@ def test_device_index_matches_jax(metric):
     _rows_match_up_to_ties(got[0], got[1], want[0], want[1])
 
 
-def test_device_index_masked_layout_is_not_ported():
-    """The masked layout is ported now (ROADMAP item 8): a corpus with one
-    huge bucket takes it, as in the JAX package, and answers the same.
-    An OPQ rotation is still not ported."""
+def test_device_index_masked_layout_matches_jax_and_opq_raises():
+    """A corpus with one huge bucket takes the masked layout, as in the
+    JAX package, and answers the same; an OPQ rotation still raises,
+    naming ROADMAP item 13."""
     rng = np.random.default_rng(16)
     centroids, codebooks, codes, _ = _index(rng, n=700, p=64)
     pidx = np.zeros(700, np.int32)                      # one huge bucket
