@@ -9,7 +9,9 @@ limit, the torch, CUDA and nvcc versions and both TF32 flags (set on,
 as many applications set them: the port's cuBLAS ranking products must
 still run in full f32, and K-B's 3xTF32 product does not read the flags;
 every comparison below shows whether they hold); builds the kernels from
-``flechasdb_tpu_torch/csrc`` and times the build.
+``flechasdb_tpu_torch/csrc`` and times the build; loads the host IO
+runtime of the stored tier (``native/fastio.cc``, built with g++) and
+prints which route runs: native, or Python's zlib, hashlib and numpy.
 
 1. Kernel parity. Each hand-written kernel runs against its plain
    PyTorch version on the card at the main paths' shapes: K-A (ADC bucket
@@ -30,7 +32,7 @@ every comparison below shows whether they hold); builds the kernels from
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C. K-A is only checked here and timed in
-   phase 5.
+   phase 6.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -73,30 +75,54 @@ every comparison below shows whether they hold); builds the kernels from
    path after the add; ``encode`` of 10,000 built rows (the rows that
    differ from the build's assignment are printed); ``remove_vectors`` of
    the 10,000 gives back the build's host arrays and phase 2's results.
-5. K-A's times, after the paths, so that ``torch.profiler`` has not run
+5. The stored tier, on phase 2's database (its arrays the build's again,
+   with phase 4's ``tenant`` and ``lang`` on every row) and phase 3's.
+   Headline: ``save_database`` into a temporary ``LocalFileSystem``, then
+   ``load_database`` -> ``to_database()`` saved again into another
+   directory: the same root and every file byte-equal. ``load_database(
+   device="cuda")``; the 8 single queries cold (the host scan), each equal
+   to phase 2's ``Database.query`` (rows up to ties, distances within the
+   tolerance), never more partitions loaded than the queries probed, and
+   each result's ``tenant`` and ``lang`` read back. ``preload()`` (a
+   bucketed index on the card), then ``query_batch`` of the 64: every row
+   and distance bit-equal to phase 2's; a filtered ``query_batch`` against
+   numpy's mask and the in-memory database; ``query_range`` of the 64
+   against ``DeviceIndex.query_range`` on the in-memory database. A copy
+   of the tree with one byte of a partition file changed (its zlib
+   header's level hint, so the stream still inflates) raises
+   ``VerificationFailure`` when that partition loads. SIFT: save, load, 8
+   cold queries at nprobe=10 (at most 10 partitions loaded a query),
+   ``preload()`` (the policy's masked layout, no kernel) and the 1,000
+   queries against phase 3's ``Database.query_batch``. Golden:
+   ``tests/fixtures/goldendb`` (read-only) on the card, cold and after
+   ``preload``, against its recorded results. The times printed: save,
+   tree bytes, root load, cold queries, ``preload``, warm ``query_batch``
+   and ``query``, and the SIFT save and ``preload``.
+6. K-A's times, after the paths, so that ``torch.profiler`` has not run
    in the process while they were timed: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
-   add). K-A's calls last microseconds, less
-   than the host's time to issue one, so its time is the device's: the
-   profiler's CUDA activity for the kernel, a launch, each call after a
-   read of 256 MiB that evicts its inputs from the 50 MB L2 (``ms``), and
-   over back-to-back calls whose inputs the call before left in L2
-   (``warm_ms``). The host time per back-to-back call (host clock, ended
-   by a synchronize) is printed beside them; the plain version's is a
-   CUDA-event mean, as in phase 1.
+   add, phase 5's those of the preloaded stored database). K-A's calls
+   last microseconds, less than the host's time to issue one, so its time
+   is the device's: the profiler's CUDA activity for the kernel, a
+   launch, each call after a read of 256 MiB that evicts its inputs from
+   the 50 MB L2 (``ms``), and over back-to-back calls whose inputs the
+   call before left in L2 (``warm_ms``). The host time per back-to-back
+   call (host clock, ended by a synchronize) is printed beside them; the
+   plain version's is a CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries, and phase 4) and read just after; every kernel a path runs must
-have run. The line before the last is the kernels' JSON record: a row per
-TPU kernel of the JAX package, with its counterpart's launches over the
-three paths, its time (``ms_by`` names the method; K-A's rows also carry
-``warm_ms`` and ``host_ms``), its plain version's and its bound from this run's
-inputs: the larger of bytes over 3.35 TB/s and operations over the rate
-of the units the kernel runs on, the H100 SXM's published peaks (K-B,
-K-C: TF32 tensor cores, 494.7 TFLOP/s; K-A: fp32, 67 TFLOP/s). The
-operations are those the function needs (2·B·N·K·M for a Lloyd round),
-not those of a route: the 3xTF32 product issues three times as many.
+queries, phase 4 and phase 5) and read just after; every kernel a path
+runs must have run. The line before the last is the kernels' JSON record:
+a row per TPU kernel of the JAX package, with its counterpart's launches
+over the four paths, its time (``ms_by`` names the method; K-A's rows
+also carry ``warm_ms`` and ``host_ms``), its plain version's and its
+bound from this run's inputs: the larger of bytes over 3.35 TB/s and
+operations over the rate of the units the kernel runs on, the H100 SXM's
+published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; K-A: fp32,
+67 TFLOP/s). The operations are those the function needs (2·B·N·K·M for
+a Lloyd round), not those of a route: the 3xTF32 product issues three
+times as many.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero with no result line.
 """
@@ -107,9 +133,12 @@ import argparse
 import json
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -166,8 +195,10 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
     miss one), each call after a read of ``L2_FLUSH_BYTES`` that evicts
     its inputs from L2; ``warm_ms``, the same over back-to-back calls;
     ``by``, the method; ``host_ms``, the host clock per back-to-back call,
-    ended by a synchronize. Raises where the profiler records no such
-    kernel."""
+    ended by a synchronize. A window in which the profiler records no
+    such launch is profiled again, up to three times (the profiler has
+    dropped a whole window's kernel records on the H100 while the wrapper
+    counted every launch); raises where none records one."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
     fn()
@@ -179,23 +210,26 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
 
     def profiled(cold: bool):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if cold:
-                    flush.sum()
-                fn()
-            torch.cuda.synchronize()
-        total = count = 0
-        for e in prof.key_averages():
-            if kernel in e.key:
-                total += getattr(e, "self_device_time_total", None) \
-                    or getattr(e, "self_cuda_time_total", 0)
-                count += e.count
-        if not count:
-            raise AssertionError(f"the profiler recorded no launch of "
-                                 f"{kernel}")
-        return total / count / 1e3, count
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    if cold:
+                        flush.sum()
+                    fn()
+                torch.cuda.synchronize()
+            total = count = 0
+            for e in prof.key_averages():
+                if kernel in e.key:
+                    total += getattr(e, "self_device_time_total", None) \
+                        or getattr(e, "self_cuda_time_total", 0)
+                    count += e.count
+            if count:
+                return total / count / 1e3, count
+            keys = sorted({e.key[:60] for e in prof.key_averages()})[:8]
+            log(f"profile window {attempt + 1} recorded no launch of "
+                f"{kernel} (recorded: {keys}); profiling again")
+        raise AssertionError(f"the profiler recorded no launch of {kernel}")
 
     ms, count = profiled(True)
     warm_ms, _ = profiled(False)
@@ -206,7 +240,7 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
 
 def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
     """K-A's ``call`` against its ``plain`` version (raises where they
-    disagree): the case phase 5 times."""
+    disagree): the case phase 6 times."""
     got, want = call(), plain()
     torch.cuda.synchronize()
     err = scan_error(torch, got, want)
@@ -291,6 +325,12 @@ def setup(torch):
     t0 = time.perf_counter()
     _kernels.load()
     log(f"kernel build + load: {time.perf_counter() - t0:.3f} s")
+    from flechasdb_tpu_torch import _native
+    t0 = time.perf_counter()
+    route = ("native (native/fastio.cc, built with g++)"
+             if _native.available() else "python (zlib, hashlib, numpy)")
+    log(f"host IO runtime of the stored tier (hash, deflate, host scan): "
+        f"{route}; build + load {time.perf_counter() - t0:.3f} s")
     if _kernels.build_log:
         log(_kernels.build_log.strip())
         for line in grouped_ptxas(_kernels.build_log):
@@ -603,7 +643,8 @@ def slice_run(torch, seed: int):
         want = ref.query(q[N_BATCH + i], k=K_TOP, nprobe=NPROBE)
         swapped += same_results(got, want, f"query[{i}]")
     log(f"results agree with the CPU plain path ({swapped} tie swaps)")
-    state = {"x": x, "q": q[:N_BATCH], "db": db, "ref": ref, "batch": batch}
+    state = {"x": x, "q": q[:N_BATCH], "db": db, "ref": ref, "batch": batch,
+             "q_single": q[N_BATCH:], "singles": singles}
     return launches, scan_at_main_path(torch, db._device_state(),
                                        q[:N_BATCH], NPROBE,
                                        "the slice's"), state
@@ -818,7 +859,8 @@ def sift_run(torch, seed: int):
         f"({swapped} tie swaps; {time.perf_counter() - t0:.3f} s)")
     require(peak <= masked.hbm_budget_bytes,
             f"the masked scan took {peak} bytes, over its budget")
-    state = {"index": index, "arrays": arrays, "q": q, "adc": adc}
+    state = {"index": index, "arrays": arrays, "q": q, "adc": adc, "db": db,
+             "batch": qb_res}
     return launches, scan_at_main_path(torch, index, q, SIFT_NPROBE,
                                        "the SIFT path's"), state
 
@@ -1090,11 +1132,218 @@ def updates_run(torch, seed: int, head: dict, sift: dict):
     range_part(ft, db, ref, masked, q, row_of, tenant, sift)
     grown = updates_part(torch, ft, db, x, q, head["batch"], tenant, seed,
                          row_of)
+    head["tenant"], head["lang"] = tenant, lang
     launches = dict(_kernels.LAUNCHES)
     log(f"launches over phase 4: {launches}")
     require(launches["adc_scan"] > 0, "phase 4 launched no adc_scan")
     return launches, scan_at_main_path(torch, grown, q, NPROBE,
                                        "the updated headline's")
+
+
+# --- phase 5: the stored tier ------------------------------------------------
+
+def tree_files(base: Path) -> dict:
+    return {f.relative_to(base).as_posix(): f.read_bytes()
+            for f in sorted(base.rglob("*")) if f.is_file()}
+
+
+def loaded(sdb) -> int:
+    return sum(p is not None for p in sdb._partitions)
+
+
+def level_flip(path: Path) -> None:
+    """Changes one byte of a stored zlib stream: its header's level hint
+    (FLG 0x9C, level 6, to 0xDA). The stream still inflates to the same
+    payload, so only the content hash can catch the change."""
+    raw = bytearray(path.read_bytes())
+    require(raw[:2] == b"\x78\x9c", f"{path.name}: not a level-6 zlib "
+            "stream")
+    raw[1] = 0xDA
+    path.write_bytes(bytes(raw))
+
+
+def stored_headline(ft, head: dict, work: Path):
+    """Save, round trip, cold queries, preload and warm queries of phase
+    2's database (with phase 4's attributes); a flipped byte. Returns the
+    stored database (its device index, for K-A's check)."""
+    db, q, batch = head["db"], head["q"], head["batch"]
+    qs, singles = head["q_single"], head["singles"]
+    tenant, lang = head["tenant"], head["lang"]
+    row_of = {vid: i for i, vid in enumerate(db.vector_ids)}
+    fs = ft.LocalFileSystem(work / "headline")
+    root, save_ms = timed(lambda: ft.save_database(db, fs))
+    files = tree_files(work / "headline")
+    mem, mat_ms = timed(lambda: ft.load_database(
+        fs, f"{root}.binpb", device="cuda").to_database())
+    root2, resave_ms = timed(lambda: ft.save_database(
+        mem, ft.LocalFileSystem(work / "resaved")))
+    del mem
+    require(root2 == root, f"the round trip saved root {root2} != {root}")
+    require(tree_files(work / "resaved") == files,
+            "the round trip's tree differs from the first save's")
+    log(f"stored headline: save_database {save_ms:.3f} ms, "
+        f"{len(files)} files, {sum(map(len, files.values()))} bytes; "
+        f"load_database -> to_database {mat_ms:.3f} ms, save again "
+        f"{resave_ms:.3f} ms: root {root}, every file byte-equal")
+
+    sdb, load_ms = timed(lambda: ft.load_database(fs, f"{root}.binpb",
+                                                  device="cuda"))
+    cold_ms, swapped = [], 0
+    for i, v in enumerate(qs):
+        got, ms = timed(lambda: sdb.query(v, K_TOP, NPROBE))
+        cold_ms.append(ms)
+        require(loaded(sdb) <= NPROBE * (i + 1),
+                f"cold query {i} loaded {loaded(sdb)} partitions")
+        swapped += same_results(got, singles[i], f"cold query[{i}]")
+        for r in got:
+            row = row_of[r.vector_id]
+            require(r.get_attribute("tenant") == int(tenant[row])
+                    and r.get_attribute("lang") == LANGS[lang[row]],
+                    f"cold query[{i}]: attributes of row {row} differ")
+    first_loaded = loaded(sdb)
+    _, again_ms = timed(lambda: sdb.query(qs[0], K_TOP, NPROBE))
+    log(f"stored headline, cold (host scan): load_database {load_ms:.3f} ms;"
+        f" first query {cold_ms[0]:.3f} ms, the next {N_SINGLE - 1} "
+        f"{', '.join(f'{v:.3f}' for v in cold_ms[1:])} ms, the first "
+        f"again {again_ms:.3f} ms; {first_loaded} of {P} partitions "
+        f"loaded; equal to phase 2's Database.query ({swapped} tie swaps);"
+        " tenant and lang read back")
+
+    _, preload_ms = timed(sdb.preload)
+    index = sdb._dev[0]
+    require(index.layout == "bucketed" and index.device.type == "cuda",
+            f"preload built a {index.layout} index on {index.device}")
+    _, first_ms = timed(lambda: sdb.query_batch(q, K_TOP, NPROBE))
+    got, warm_ms = timed(lambda: sdb.query_batch(q, K_TOP, NPROBE))
+    for b, (g, w) in enumerate(zip(got, batch)):
+        require([(r.vector_id, r.squared_distance) for r in g]
+                == [(r.vector_id, r.squared_distance) for r in w],
+                f"preloaded query_batch[{b}] differs from phase 2's")
+    one, one_ms = timed(lambda: sdb.query(qs[0], K_TOP, NPROBE))
+    swapped = same_results(one, singles[0], "preloaded query")
+    name, where, mask = headline_filters(ft, tenant, lang)[1]
+    sdb.query_batch(q, K_TOP, NPROBE, where=where)
+    fgot, f_ms = timed(lambda: sdb.query_batch(q, K_TOP, NPROBE,
+                                               where=where))
+    fwant = db.query_batch(q, K_TOP, NPROBE, where=where)
+    for b in range(len(q)):
+        require(all(mask[row_of[r.vector_id]] for r in fgot[b]),
+                f"{name}: a stored result fails the filter")
+        swapped += same_results(fgot[b], fwant[b], f"stored {name} [{b}]")
+    radius = float(np.median([rs[K_TOP - 1].squared_distance
+                              for rs in batch]))
+    rwant = db._device_state().query_range(q, radius, NPROBE)
+    rgot, r_ms = timed(lambda: [sdb.query_range(v, radius, NPROBE)
+                                for v in q])
+    edge = sum(same_hits(hits(rgot[b], row_of), rwant[b], radius,
+                         f"stored query_range [{b}]") for b in range(len(q)))
+    log(f"stored headline, warm: preload {preload_ms:.3f} ms; "
+        f"query_batch({N_BATCH}) first {first_ms:.3f} ms, warm "
+        f"{warm_ms:.3f} ms, every row and distance bit-equal to phase 2's;"
+        f" query {one_ms:.3f} ms; query_batch(where={name}) {f_ms:.3f} ms "
+        f"against numpy's mask and the in-memory database ({swapped} tie "
+        f"swaps); query_range x {len(q)} {r_ms:.3f} ms, "
+        f"{sum(map(len, rgot))} hits, equal to DeviceIndex.query_range "
+        f"({edge} rows at the radius)")
+
+    shutil.copytree(work / "headline", work / "flipped")
+    level_flip(work / "flipped" / "partitions" /
+               f"{sdb.root.partition_ids[0]}.binpb")
+    broken = ft.load_database(ft.LocalFileSystem(work / "flipped"),
+                              f"{root}.binpb", device="cuda")
+    broken.get_partition(1)
+    try:
+        broken.get_partition(0)
+    except ft.VerificationFailure as e:
+        log(f"flipped byte in partition 0's file: VerificationFailure: {e}")
+    else:
+        raise AssertionError("a flipped partition file loaded")
+    return sdb
+
+
+def stored_sift(ft, sift: dict, work: Path) -> None:
+    """Save, lazy cold queries, preload and 1000 warm queries of phase 3's
+    database."""
+    db, q, want = sift["db"], sift["q"], sift["batch"]
+    fs = ft.LocalFileSystem(work / "sift")
+    root, save_ms = timed(lambda: ft.save_database(db, fs))
+    size = sum(f.stat().st_size for f in (work / "sift").rglob("*.binpb"))
+    sdb, load_ms = timed(lambda: ft.load_database(fs, f"{root}.binpb",
+                                                  device="cuda"))
+    cold_ms, swapped = [], 0
+    for i in range(N_SINGLE):
+        before = loaded(sdb)
+        got, ms = timed(lambda: sdb.query(q[i], K_TOP, SIFT_NPROBE))
+        cold_ms.append(ms)
+        require(loaded(sdb) - before <= SIFT_NPROBE,
+                f"SIFT cold query {i} loaded {loaded(sdb) - before} "
+                "partitions")
+        swapped += same_results(got, want[i], f"SIFT cold query[{i}]")
+    n_loaded = loaded(sdb)
+    _, preload_ms = timed(sdb.preload)
+    layout = sdb._dev[0].layout
+    require(layout == "masked", f"the policy picked {layout}")
+    got, qb_ms = timed(lambda: sdb.query_batch(q, K_TOP, SIFT_NPROBE))
+    exact = 0
+    for b in range(len(q)):
+        swapped += same_results(got[b], want[b], f"SIFT stored [{b}]")
+        exact += sum(g.squared_distance == w.squared_distance
+                     for g, w in zip(got[b], want[b]))
+    log(f"stored SIFT: save_database {save_ms:.3f} ms, {size} bytes; "
+        f"load_database {load_ms:.3f} ms; {N_SINGLE} cold queries at "
+        f"nprobe={SIFT_NPROBE}: {', '.join(f'{v:.3f}' for v in cold_ms)} ms,"
+        f" {n_loaded} of {SIFT_P} partitions loaded; preload "
+        f"{preload_ms:.3f} ms ({layout} layout); query_batch({len(q)}) "
+        f"{qb_ms:.3f} ms, equal to phase 3's Database.query_batch "
+        f"({exact} of {sum(map(len, want))} distances bit-equal, {swapped} "
+        "tie swaps)")
+
+
+def stored_golden(ft) -> None:
+    """``tests/fixtures/goldendb`` (read-only) loaded on the card, queried
+    cold and after preload, against its recorded results."""
+    import uuid
+    fix = Path(__file__).resolve().parent / "tests" / "fixtures"
+    root = (fix / "goldendb_root.txt").read_text().strip()
+    x = np.load(fix / "goldendb_vectors.npy")
+    expected = [line.split(",") for line in
+                (fix / "goldendb_expected.txt").read_text().splitlines()]
+    sdb = ft.load_database(ft.LocalFileSystem(fix / "goldendb"),
+                           f"{root}.binpb", device="cuda")
+    cold = sdb.query(x[10], k=5, nprobe=4)
+    sdb.preload()
+    warm = sdb.query(x[10], k=5, nprobe=4)
+    for what, res in (("cold", cold), ("preloaded", warm)):
+        require(len(res) == len(expected), f"goldendb {what}: "
+                f"{len(res)} results")
+        for r, (vid, pi, vi, dist) in zip(res, expected):
+            require(r.vector_id == uuid.UUID(vid)
+                    and r.partition_index == int(pi)
+                    and r.vector_index == int(vi)
+                    and abs(r.squared_distance - float(dist)) <= 1e-4,
+                    f"goldendb {what}: {r} != {vid},{pi},{vi},{dist}")
+    log(f"goldendb on the card: cold and preloaded ({sdb._dev[0].layout}) "
+        "queries give the recorded results")
+
+
+def stored_run(torch, head: dict, sift: dict):
+    """Phase 5: the launch counts are zeroed before it and read after."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        sdb = stored_headline(ft, head, work)
+        stored_launches = _kernels.LAUNCHES["adc_scan"]
+        stored_sift(ft, sift, work)
+    stored_golden(ft)
+    launches = dict(_kernels.LAUNCHES)
+    log(f"launches over phase 5: {launches}")
+    require(stored_launches > 0, "the preloaded headline launched no "
+            "adc_scan")
+    return launches, scan_at_main_path(torch, sdb._dev[0], head["q"], NPROBE,
+                                       "the stored headline's")
 
 
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
@@ -1157,17 +1406,20 @@ def main() -> None:
     upd_launches, a_upd = updates_run(torch, args.seed, head, sift)
     log(f"phase 4 (filters, range search, updates): "
         f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    stored_launches, a_stored = stored_run(torch, head, sift)
+    log(f"phase 5 (the stored tier): {time.perf_counter() - t0:.3f} s")
     del head, sift
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd]
+    a_cases += [a_main, a_sift, a_upd, a_stored]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 5 (K-A times): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 6 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
-                for k in slice_launches}
+                + stored_launches[k] for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),

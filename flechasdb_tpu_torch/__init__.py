@@ -2,8 +2,11 @@
 
 The port of the JAX package's build → query paths to PyTorch (the
 bucketed and masked layouts, exact rerank, attribute filters, range search
-and updates of the in-memory database), with hand-written CUDA kernels
-for an NVIDIA H100 (``sm_90a``):
+and updates of the in-memory database) and of its synchronous stored tier
+(``save_database`` writes the JAX package's content-addressed tree, byte
+for byte; ``load_database`` reads it lazily, queries cold on the host and,
+after ``StoredDatabase.preload``, serves from the device), with
+hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
 
 * K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``), also
   behind ``ops.scan.adc_lookup``;
@@ -16,9 +19,11 @@ Work runs on an explicit device, ``"cuda"`` by default. On a CPU tensor
 each kernel's plain PyTorch version runs instead; on a CUDA tensor the
 kernel launches or the call raises. The port imports neither jax nor the
 JAX package (whose ``__init__`` imports jax): it carries copies of the
-few jax-free host helpers it needs (:mod:`.errors`, :mod:`.events`,
-:mod:`.host`, :mod:`.attributes`, :mod:`.filters`), with the same names
-and messages.
+jax-free host code it needs (:mod:`.errors`, :mod:`.events`,
+:mod:`.host`, :mod:`.attributes`, :mod:`.filters`, and the storage layer:
+:mod:`.io`, :mod:`.protos`, :mod:`._native` with ``native/fastio.cc``,
+:mod:`.serialize`, :mod:`.stored`, :mod:`.memfs`, :mod:`.catalog`), with
+the same names and messages.
 """
 
 from .errors import (
@@ -33,8 +38,14 @@ from .errors import (
 
 from .attributes import AttributeTable, Attributes, AttributeValue
 from .build import Database, DatabaseBuilder, QueryResult
+from .catalog import load_labeled, publish_label, resolve_label
 from .convert import from_jax_arrays, to_arrays
 from .filters import Eq, Exists, Filter, In, Range
+from .host import VALID_METRICS
+from .io import FileSystem, LocalFileSystem
+from .memfs import MemoryFileSystem
+from .serialize import save_database
+from .stored import StoredDatabase, StoredQueryResult, load_database
 
 __all__ = [
     "AttributeTable",
@@ -44,6 +55,7 @@ __all__ = [
     "DatabaseBuilder",
     "Eq",
     "Exists",
+    "FileSystem",
     "Filter",
     "FlechasError",
     "InvalidArgs",
@@ -51,10 +63,20 @@ __all__ = [
     "InvalidData",
     "IOError_",
     "In",
+    "LocalFileSystem",
+    "MemoryFileSystem",
     "ProtobufError",
     "QueryResult",
     "Range",
+    "StoredDatabase",
+    "StoredQueryResult",
+    "VALID_METRICS",
     "VerificationFailure",
     "from_jax_arrays",
+    "load_database",
+    "load_labeled",
+    "publish_label",
+    "resolve_label",
+    "save_database",
     "to_arrays",
 ]

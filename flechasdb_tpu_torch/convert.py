@@ -1,9 +1,10 @@
-"""Databases carried between the JAX package and the port.
+"""Databases carried between the JAX package and the port in memory.
 
 Both hold the same host fields (numpy arrays, UUIDs, the attribute
 table); nothing here imports jax. :func:`to_arrays` gives the keyword
-arguments of ``flechasdb_tpu.build.Database``, so a database built here
-can be saved and loaded with the JAX package.
+arguments of ``flechasdb_tpu.build.Database``, and :func:`from_jax_arrays`
+takes them back. Persisting needs neither: the port saves and loads the
+same trees itself (:mod:`.serialize`, :mod:`.stored`).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Typed observability events: the subset of the JAX package's ``events``
-that the build and the in-memory query emit, with the same names and
-fields (``kmeans.rs:71-88``, ``db/build.rs:132-153``,
-``db/stored.rs:513-532``).
+"""Typed observability events: the JAX package's ``events``, all of its
+classes with the same names and fields, emitted by the build, the
+in-memory query and the stored tier (``kmeans.rs:71-88``,
+``db/build.rs:132-153``, ``db/stored.rs:513-532``).
 
 A copy, for the reason given in :mod:`.errors`. Batched PQ training
 reports a per-division gradient vector in :class:`FinishedCentroidUpdate`,
@@ -106,7 +106,17 @@ class ClusterEvent(Event):
     event: Event
 
 
-# --- query (db/stored.rs:513-532) ------------------------------------------
+# --- query (db/stored.rs:513-532, asyncdb/stored/query.rs:150-177) ---------
+
+@dataclass
+class StartingQueryInitialization(Event):
+    pass
+
+
+@dataclass
+class FinishedQueryInitialization(Event):
+    pass
+
 
 @dataclass
 class StartingPartitionSelection(Event):
@@ -126,6 +136,38 @@ class StartingPartitionQuery(Event):
 @dataclass
 class FinishedPartitionQuery(Event):
     partition_index: int
+
+
+@dataclass
+class StartingPartitionLoad(Event):
+    """Async path: a partition file read began (``query.rs:162``)."""
+    partition_index: int
+
+
+@dataclass
+class FinishedPartitionLoad(Event):
+    partition_index: int
+
+
+@dataclass
+class StartingPartitionCentroidsLoad(Event):
+    """Async path: partition-centroids file read began
+    (``query.rs:153-155``)."""
+
+
+@dataclass
+class FinishedPartitionCentroidsLoad(Event):
+    pass
+
+
+@dataclass
+class StartingCodebookLoad(Event):
+    pass
+
+
+@dataclass
+class FinishedCodebookLoad(Event):
+    pass
 
 
 @dataclass

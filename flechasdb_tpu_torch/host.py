@@ -4,10 +4,12 @@ same behaviour and messages: ``vector.as_vector_set``,
 and ``stored.check_range_args``. A copy, for the reason given in
 :mod:`.errors`; ``tests/test_torch_slice.py`` and
 ``tests/test_torch_range.py`` hold each against its original.
+:func:`usable_cpus` is the port's own: the stored tier's pool sizes.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -110,3 +112,13 @@ def check_range_args(radius, nprobe: int, num_partitions: int) -> None:
         raise InvalidArgs(
             f"nprobe {nprobe} exceeds the number of partitions"
             f" {num_partitions}")
+
+
+def usable_cpus() -> int:
+    """CPUs this process may run on: its schedulable set where the system
+    reports one (a container or ``taskset`` limits it), else the
+    machine's count. The stored tier sizes its thread pools from it."""
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1

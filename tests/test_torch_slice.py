@@ -299,6 +299,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".with_divisions(4).with_clusters(8).with_seed(1).build())\n"
         "res = db.query(x[0], k=3, nprobe=2)\n"
         "assert res[0].vector_id == db.vector_ids[0], res\n"
+        "db.set_attribute_at(0, ('tag', 'zero'))\n"
+        "fs = ft.MemoryFileSystem()\n"
+        "root = ft.save_database(db, fs)\n"
+        "sdb = ft.load_database(fs, root + '.binpb', device='cpu')\n"
+        "cold = sdb.query(x[0], k=3, nprobe=2)\n"
+        "assert [r.vector_id for r in cold] == [r.vector_id for r in res]\n"
+        "assert cold[0].get_attribute('tag') == 'zero'\n"
+        "sdb.preload()\n"
+        "warm = sdb.query_batch(x[:1], k=3, nprobe=2)[0]\n"
+        "assert [r.vector_id for r in warm] == [r.vector_id for r in res]\n"
+        "assert ft.save_database(sdb.to_database(), ft.MemoryFileSystem())"
+        " == root\n"
+        "from flechasdb_tpu_torch import _native\n"
+        "assert _native.available()\n"
         "assert not [m for m in sys.modules if m == 'flechasdb_tpu'"
         " or m.startswith('flechasdb_tpu.')], 'JAX package imported'\n"
         "print('ok')\n")
