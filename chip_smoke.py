@@ -27,12 +27,17 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    and duplicated centroids, each also held to K-B's assignment on the
    ungrouped data (both rank with the same 3xTF32 tensor-core product in
    the same order, so the rows that differ are expected to be 0; the
-   check allows near-ties). The kernels' ``ptxas`` registers and spills
-   are printed for each K-C instance.
+   check allows near-ties). The fast_math variants of K-B and K-C (one
+   bf16 tensor-core pass) against their plain fast versions: K-B fast at
+   K-B's four shapes and with duplicated centroids, K-C fast at the SIFT
+   PQ shape, m=8, m=32, m=64 (K=300) and duplicated centroids; ties
+   measured on the bf16-rounded operands, sums against sums of the
+   bf16-rounded x, which the sums of the f32 x must miss. The kernels'
+   ``ptxas`` registers and spills are printed for each K-C instance.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C. K-A is only checked here and timed in
-   phase 6.
+   phase 7.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -98,11 +103,37 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ``preload``, against its recorded results. The times printed: save,
    tree bytes, root load, cold queries, ``preload``, warm ``query_batch``
    and ``query``, and the SIFT save and ``preload``.
-6. K-A's times, after the paths, so that ``torch.profiler`` has not run
+6. Fast-math training and OPQ, at full width. First one Lloyd round
+   from phase 2's centroids, fast against full: the share of equal picks
+   at the coarse fit (at least 0.95) and at the PQ fit. Then, with the
+   launch counts zeroed: ``with_fast_math()`` at the headline shape
+   (phase 2's seed; K-B fast at B=1, K=100, M=1536 and at B=12, K=256,
+   m=128), whose recall@10 over 1,000 headline queries (k=10, nprobe=5)
+   must come within 0.02 of phase 2's build and its PQ inertia within 5%;
+   ``with_fast_math()`` at the SIFT shape (K-B fast at K=1024, K-C fast at
+   m=16): recall@10 at nprobe=10 within 0.02 of phase 3's, coarse@10 at
+   least 0.95; and the JAX package's ``sift-opq`` configuration
+   (``benchmarks/sweep.py:79-130``): phase 3's data, ``with_opq(6)``, full
+   precision (K-B coarse, K-C in every inner PQ fit), whose rotation must
+   be orthogonal within 1e-4, whose quantization error must not exceed
+   that of phase 3's PQ configuration fitted on the same residuals (after
+   the phase's launch counts are read), and whose 1,000 queries through
+   ``DeviceIndex(layout="bucketed", rotation=R)`` (K-A on rotated tables)
+   must reach phase 3's recall less 0.02 and agree with the CPU path (64)
+   and the masked layout (1,000). Its tree (with ``rotations/``) is saved
+   and loaded: 8 cold queries equal to the in-memory ones, then
+   ``preload`` and ``query_batch(1000)`` bit-equal to the in-memory
+   database's; ``add_vectors`` of 10,000 rows and a query after it (16
+   against the CPU path). Each build's time and its fits' (the device
+   synchronized at the events), the OPQ fit's parts (PQ fits, rotations,
+   reconstructions, Gram, host SVD) and the phase's launches are printed;
+   each fast kernel, K-B, K-C and K-A must have launched.
+7. K-A's times, after the paths, so that ``torch.profiler`` has not run
    in the process while they were timed: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
-   add, phase 5's those of the preloaded stored database). K-A's calls
+   add, phase 5's those of the preloaded stored database, phase 6's the
+   SIFT-OPQ buckets with their rotated tables). K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
    launch, each call after a read of 256 MiB that evicts its inputs from
@@ -112,17 +143,18 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    plain version's is a CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phase 4 and phase 5) and read just after; every kernel a path
+queries, phases 4, 5 and 6) and read just after; every kernel a path
 runs must have run. The line before the last is the kernels' JSON record:
 a row per TPU kernel of the JAX package, with its counterpart's launches
-over the four paths, its time (``ms_by`` names the method; K-A's rows
+over the five paths, its time (``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``), its plain version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
-published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; K-A: fp32,
-67 TFLOP/s). The operations are those the function needs (2·B·N·K·M for
-a Lloyd round), not those of a route: the 3xTF32 product issues three
-times as many.
+published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; their
+fast_math variants: bf16 tensor cores, 989.4 TFLOP/s; K-A: fp32, 67
+TFLOP/s). The operations are those the function needs (2·B·N·K·M for a
+Lloyd round), not those of a route: the 3xTF32 product issues three times
+as many.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero with no result line.
 """
@@ -153,6 +185,9 @@ TIE_REL = 1e-5                   # Lloyd picks may differ only this close
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12   # H100 SXM published peaks
 L2_FLUSH_BYTES = 256 << 20                # over the H100's 50 MB of L2
 TF32_FLOPS = 494.7e12                     # H100 SXM dense TF32
+BF16_FLOPS = 989.4e12                     # H100 SXM dense bf16
+OPQ_ITERS = 6                    # benchmarks/sweep.py's sift-opq config
+N_RECALL = 1000                  # headline queries for recall
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
@@ -163,6 +198,9 @@ REPLACES = {
     "lookup": "flechasdb_tpu/ops/pallas_scan.py:133",
     "round": "flechasdb_tpu/ops/pallas_kmeans.py:36",
     "grouped": "flechasdb_tpu/ops/pallas_kmeans.py:143",
+    # The fast_math=True branches of the same two kernels.
+    "round_fast": "flechasdb_tpu/ops/pallas_kmeans.py:93",
+    "grouped_fast": "flechasdb_tpu/ops/pallas_kmeans.py:189",
 }
 
 
@@ -240,7 +278,7 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
 
 def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
     """K-A's ``call`` against its ``plain`` version (raises where they
-    disagree): the case phase 6 times."""
+    disagree): the case phase 7 times."""
     got, want = call(), plain()
     torch.cuda.synchronize()
     err = scan_error(torch, got, want)
@@ -338,8 +376,9 @@ def setup(torch):
 
 
 def grouped_ptxas(build_log: str) -> list:
-    """One line per K-C instance (its subvector width M) from ``ptxas -v``:
-    registers, stack frame and spills."""
+    """One line per K-C instance (its subvector width M, and whether it is
+    the fast_math variant) from ``ptxas -v``: registers, stack frame and
+    spills."""
     out, name, frame = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -348,10 +387,11 @@ def grouped_ptxas(build_log: str) -> list:
         elif name and "spill" in line:
             frame = line.strip()
         elif name and "Used" in line:
-            w = re.search(r"grouped_round_kernelILi(\d+)E", name)
+            w = re.search(r"grouped_round_kernelILi(\d+)ELb([01])E", name)
             if w:
                 regs = re.search(r"Used (\d+) registers", line)
-                out.append(f"K-C ptxas M={w.group(1)}: "
+                out.append(f"K-C ptxas M={w.group(1)}"
+                           f"{' fast' if w.group(2) == '1' else ''}: "
                            f"{regs.group(1) if regs else '?'} registers, "
                            f"{frame}")
             name = None
@@ -426,13 +466,17 @@ def scan_error(torch, got, want) -> float:
 
 
 def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
-                 grouped=False):
+                 grouped=False, fast=False):
     """K-B (or, ``grouped``, K-C on the regrouped data) against its plain
     version; K-C also against K-B's assignment. Picks may differ only
-    where two centroids are within TIE_REL of a tie."""
+    where two centroids are within TIE_REL of a tie. ``fast``: the
+    fast_math variants against the plain fast versions, ties measured on
+    the bf16-rounded operands, the sums against sums of the bf16-rounded
+    x (which sums of the f32 x must miss)."""
     from flechasdb_tpu_torch.ops import lloyd
     dev = "cuda"
-    name = "K-C lloyd_grouped" if grouped else "K-B lloyd_round"
+    name = ("K-C lloyd_grouped" if grouped else "K-B lloyd_round") \
+        + (" fast" if fast else "")
     x = torch.randn((b, n, m), generator=gen, device=dev)
     x /= x.norm(dim=(0, 2), keepdim=True)        # unit rows across B·m
     pick = torch.randint(0, n, (k,), generator=gen, device=dev)
@@ -444,41 +488,53 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         xg = lloyd.regroup_divisions(x)
 
         def kernel():
-            return lloyd.lloyd_round_grouped(xg, c)
+            return lloyd.lloyd_round_grouped(xg, c, fast_math=fast)
 
         def plain():
-            return lloyd.lloyd_round_grouped_plain(xg, c)
+            return lloyd.lloyd_round_grouped_plain(xg, c, fast_math=fast)
         x_bytes = xg.numel() * 4
     else:
         def kernel():
-            return lloyd.lloyd_round(x, c)
+            return lloyd.lloyd_round(x, c, fast_math=fast)
 
         def plain():
-            return lloyd.lloyd_round_plain(x, c)
+            return lloyd.lloyd_round_plain(x, c, fast_math=fast)
         x_bytes = x.numel() * 4
     idx, sums, counts = kernel()
     p_idx, p_sums, p_counts = plain()
     torch.cuda.synchronize()
     if dup and bool(((idx == 7) | (idx == k - 1)).any()):
         raise AssertionError(f"{name} picked a later duplicate centroid")
-    ties = tie_rows(x, c, idx, p_idx, f"{name} against its plain version")
+    ties = tie_rows(x, c, idx, p_idx, f"{name} against its plain version",
+                    fast)
     if grouped:
         # K-C splits, multiplies and accumulates as K-B does, so their
         # distances and picks are expected to be equal (0 rows differ).
-        kb_ties = tie_rows(x, c, idx, lloyd.lloyd_round(x, c)[0],
-                           "K-C against K-B")
+        kb_ties = tie_rows(x, c, idx,
+                           lloyd.lloyd_round(x, c, fast_math=fast)[0],
+                           f"K-C against K-B{' fast' if fast else ''}", fast)
     # Sums and counts checked against the plain scatter of the kernel's
     # own assignment, so tie rows do not blur the check.
     flat = (idx.long() + k * torch.arange(b, device=dev)[:, None]
             ).reshape(-1)
-    ref = torch.zeros((b * k, m), device=dev).index_add_(
-        0, flat, x.reshape(-1, m)).reshape(b, k, m)
+
+    def scatter(v):
+        return torch.zeros((b * k, m), device=dev).index_add_(
+            0, flat, v.reshape(-1, m)).reshape(b, k, m)
+
+    ref = scatter(lloyd._bf16(x) if fast else x)
     ref_counts = torch.bincount(flat, minlength=b * k).reshape(b, k)
     if not torch.equal(counts, ref_counts.float()):
         raise AssertionError(f"{name} counts differ")
     err = float((sums - ref).abs().max())
     if bool(((sums - ref).abs() > SUM_ATOL + SUM_RTOL * ref.abs()).any()):
         raise AssertionError(f"{name} sums disagree: max abs err {err}")
+    if fast:
+        f32 = scatter(x)
+        if not bool(((sums - f32).abs() > SUM_ATOL + SUM_RTOL * f32.abs())
+                    .any()):
+            raise AssertionError(f"{name} sums match sums of the f32 x, "
+                                 "not of the bf16-rounded x")
     if ties == 0 and not torch.equal(counts, p_counts):
         raise AssertionError(f"{name} counts differ from the plain version")
     ms = plain_ms = kb_ms = float("nan")
@@ -487,8 +543,10 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         plain_ms = cuda_ms(torch, plain, 5)
         if grouped:
             kb_ms = cuda_ms(torch, lambda: lloyd.lloyd_round(x, c), 5)
-    bms, by = lloyd_bound(x_bytes, b, n, k, m, TF32_FLOPS,
-                          "operations (TF32 tensor cores)")
+    bms, by = (lloyd_bound(x_bytes, b, n, k, m, BF16_FLOPS,
+                           "operations (bf16 tensor cores)") if fast else
+               lloyd_bound(x_bytes, b, n, k, m, TF32_FLOPS,
+                           "operations (TF32 tensor cores)"))
     log(f"{name} B={b} N={n} K={k} M={m}{' dup' if dup else ''}: "
         f"{ties} tie rows differ"
         + (f", {kb_ties} rows from K-B's (0 expected)" if grouped else "")
@@ -499,16 +557,19 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     return err, ms, plain_ms, bms, by
 
 
-def tie_rows(x, c, got, want, what: str):
+def tie_rows(x, c, got, want, what: str, fast: bool = False):
     """The rows where two assignments of ``x`` to ``c`` differ; raises
     unless each such row's two centroids lie within TIE_REL of a tie
-    (float64 distances, relative to the row's distance scale)."""
+    (float64 distances, relative to the row's distance scale; ``fast``:
+    the cross term of the bf16-rounded operands, as the fast variants
+    rank)."""
+    from flechasdb_tpu_torch.ops.lloyd import _bf16
     mism = (got != want).nonzero()
     if len(mism):
         bb, ii = mism[:, 0], mism[:, 1]
-        x64 = x[bb, ii].double()
-        c64 = c.double()
-        cc64 = (c64 * c64).sum(-1)
+        x64 = (_bf16(x[bb, ii]) if fast else x[bb, ii]).double()
+        c64 = (_bf16(c) if fast else c).double()
+        cc64 = (c.double() ** 2).sum(-1)
 
         def dist(kk):
             ck = c64[bb, kk.long()]
@@ -683,7 +744,8 @@ def main_path_scan_args(torch, index, q, nprobe):
     coarse = adc.coarse_scores(qd, index.centroids)
     probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
     tables = bucketed.probed_tables(qd, index.centroids, index.codebooks,
-                                    probed, coarse=coarse)
+                                    probed, coarse=coarse,
+                                    rotation=index.rotation)
     return (bk.codes, tables.reshape(-1, d * c).contiguous(),
             probed.reshape(-1).to(torch.int32).contiguous(),
             bk.lengths[probed].reshape(-1).contiguous()), d
@@ -860,7 +922,7 @@ def sift_run(torch, seed: int):
     require(peak <= masked.hbm_budget_bytes,
             f"the masked scan took {peak} bytes, over its budget")
     state = {"index": index, "arrays": arrays, "q": q, "adc": adc, "db": db,
-             "batch": qb_res}
+             "batch": qb_res, "x": x, "gt": gt, "recall": r_adc}
     return launches, scan_at_main_path(torch, index, q, SIFT_NPROBE,
                                        "the SIFT path's"), state
 
@@ -1346,6 +1408,275 @@ def stored_run(torch, head: dict, sift: dict):
                                        "the stored headline's")
 
 
+# --- phase 6: fast-math training and OPQ -------------------------------------
+
+def event_timed_build(torch, builder):
+    """``builder.build_with_events``, the device synchronized at the edges
+    of the coarse fit and of the PQ fit (OPQ's whole fit under
+    ``with_opq``): ``(db, build s, coarse fit s, PQ fit s)``."""
+    marks = {}
+
+    def on(e):
+        name = type(e).__name__
+        if name in ("StartingPartitioning", "FinishedPartitioning",
+                    "FinishedQuantization") or (
+                name == "StartingQuantization" and name not in marks):
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = builder.build_with_events(on)
+    torch.cuda.synchronize()
+    return (db, time.perf_counter() - t0,
+            marks["FinishedPartitioning"] - marks["StartingPartitioning"],
+            marks["FinishedQuantization"] - marks["StartingQuantization"])
+
+
+def pq_error(torch, db) -> float:
+    """Mean over rows of ``‖residue·R − reconstruction‖²`` (``R`` the OPQ
+    rotation, or none), on the card: the PQ inertia a row."""
+    from flechasdb_tpu_torch.ops import kmeans, opq
+    m = db.vector_size
+    rot = (torch.eye(m, device="cuda") if db.rotation is None
+           else torch.as_tensor(db.rotation, device="cuda"))
+    pq = kmeans.KMeansResult(
+        torch.as_tensor(db.codebooks, device="cuda"),
+        torch.as_tensor(np.ascontiguousarray(db.codes.T.astype(np.int64)),
+                        device="cuda"), None, None)
+    return opq.quantization_error(torch.as_tensor(db.residues, device="cuda"),
+                                  rot, pq, d=db.num_divisions)
+
+
+def recall_at(rows: np.ndarray, gt: np.ndarray) -> float:
+    return float(np.mean([len(set(rows[b].tolist()) & set(gt[b].tolist()))
+                          / gt.shape[1] for b in range(len(gt))]))
+
+
+def agreement(torch, head: dict) -> tuple[float, float]:
+    """One Lloyd round, fast against full, from phase 2's centroids: the
+    share of equal picks at the coarse fit (K-B, B=1, K=100, M=1536) and
+    at the PQ fit (K-B, B=12, K=256, m=128, on phase 2's residues)."""
+    from flechasdb_tpu_torch.ops import lloyd
+    db = head["db"]
+    out = []
+    for x, c in (
+            (torch.as_tensor(head["x"], device="cuda")[None],
+             torch.as_tensor(db.partition_centroids, device="cuda")[None]),
+            (torch.as_tensor(db.residues, device="cuda")
+             .reshape(N, D, M // D).transpose(0, 1).contiguous(),
+             torch.as_tensor(db.codebooks, device="cuda"))):
+        full = lloyd.lloyd_round(x, c)[0]
+        fast = lloyd.lloyd_round(x, c, fast_math=True)[0]
+        out.append(float((full == fast).float().mean()))
+        del x, c, full, fast
+    return out[0], out[1]
+
+
+def fast_headline(torch, ft, head: dict, seed: int) -> None:
+    """``with_fast_math()`` at the headline shape, against phase 2's
+    full-precision build: recall@10 over N_RECALL queries, PQ inertia."""
+    x, full = head["x"], head["db"]
+    rng = np.random.default_rng(seed + 3)
+    qr = x[rng.choice(N, N_RECALL, replace=False)]
+    qr = qr + 0.02 * rng.standard_normal(qr.shape, dtype=np.float32)
+    gt = ground_truth(torch, x, qr, K_TOP)
+    db, build_s, coarse_s, pq_s = event_timed_build(
+        torch, ft.DatabaseBuilder(x, device="cuda").with_partitions(P)
+        .with_divisions(D).with_clusters(C).with_seed(seed).with_fast_math())
+    check_build(db, x, P, D, C)
+    layout = db._device_state().layout
+    recalls = []
+    for d in (full, db):
+        row_of = {vid: i for i, vid in enumerate(d.vector_ids)}
+        res = d.query_batch(qr, K_TOP, NPROBE)
+        recalls.append(recall_at(host_arrays(res, row_of, K_TOP)[1], gt))
+    errs = pq_error(torch, full), pq_error(torch, db)
+    log(f"fast headline: build {build_s:.3f} s (coarse fit {coarse_s:.3f} s,"
+        f" PQ fit {pq_s:.3f} s), {layout} layout; recall@10 over "
+        f"{N_RECALL} queries at nprobe={NPROBE}: {recalls[1]:.4f} "
+        f"(phase 2's build {recalls[0]:.4f}); PQ inertia a row "
+        f"{errs[1]:.6f} (phase 2's {errs[0]:.6f}, ratio "
+        f"{errs[1] / errs[0]:.4f})")
+    require(abs(recalls[1] - recalls[0]) <= 0.02,
+            f"fast recall {recalls[1]} not within 0.02 of {recalls[0]}")
+    require(abs(errs[1] - errs[0]) <= 0.05 * errs[0],
+            f"fast PQ inertia {errs[1]} not within 5% of {errs[0]}")
+
+
+def fast_sift(torch, ft, sift: dict, seed: int) -> None:
+    """``with_fast_math()`` at the SIFT shape (K-B fast at K=1024, K-C fast
+    at m=16), against phase 3's build."""
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    x, q, gt = sift["x"], sift["q"], sift["gt"]
+    db, build_s, coarse_s, pq_s = event_timed_build(
+        torch, ft.DatabaseBuilder(x, device="cuda").with_partitions(SIFT_P)
+        .with_divisions(SIFT_D).with_clusters(C).with_seed(seed)
+        .with_fast_math())
+    check_build(db, x, SIFT_P, SIFT_D, C)
+    index = DeviceIndex(db.partition_centroids, db.codebooks,
+                        db.codes.astype(np.int32), db.partition_indices,
+                        layout="bucketed", device="cuda")
+    _, rows, probed = index.query(q, K_TOP, SIFT_NPROBE)
+    recall = recall_at(rows, gt)
+    coarse = float(np.mean([np.isin(db.partition_indices[gt[b]],
+                                    probed[b]).mean() for b in range(len(q))]))
+    log(f"fast SIFT: build {build_s:.3f} s (coarse fit {coarse_s:.3f} s, PQ"
+        f" fit {pq_s:.3f} s); recall@10 {recall:.4f} (phase 3's "
+        f"{sift['recall']:.4f}), coarse@10 {coarse:.4f}; PQ inertia a row "
+        f"{pq_error(torch, db):.4f} (phase 3's {pq_error(torch, sift['db']):.4f})")
+    require(abs(recall - sift["recall"]) <= 0.02,
+            f"fast SIFT recall {recall} not within 0.02 of {sift['recall']}")
+    require(coarse >= 0.95, f"fast SIFT coarse@10 {coarse} < 0.95")
+
+
+def sift_opq(torch, ft, sift: dict, seed: int, work: Path):
+    """The JAX package's ``sift-opq`` configuration on phase 3's data:
+    build (OPQ's parts timed), quality, K-A on rotated tables against the
+    CPU path and the masked layout, the stored round trip, an add.
+    Returns the bucketed index (for K-A's check)."""
+    from flechasdb_tpu_torch.ops import opq as opq_mod
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    x, q, gt, base = sift["x"], sift["q"], sift["gt"], sift["db"]
+    times = {}
+    real = opq_mod.fit_opq
+    # The builder imports fit_opq at build time: this one also times its
+    # parts.
+    opq_mod.fit_opq = lambda *a, **kw: real(*a, times=times, **kw)
+    try:
+        db, build_s, coarse_s, opq_s = event_timed_build(
+            torch, ft.DatabaseBuilder(x, device="cuda")
+            .with_partitions(SIFT_P).with_divisions(SIFT_D).with_clusters(C)
+            .with_seed(seed).with_opq(OPQ_ITERS))
+    finally:
+        opq_mod.fit_opq = real
+    check_build(db, x, SIFT_P, SIFT_D, C)
+    rot = db.rotation
+    orth = float(np.abs(rot.astype(np.float64) @ rot.T.astype(np.float64)
+                        - np.eye(SIFT_M)).max())
+    log(f"SIFT-OPQ: build {build_s:.3f} s (coarse fit {coarse_s:.3f} s, OPQ "
+        f"fit {opq_s:.3f} s, {OPQ_ITERS} iterations: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(times.items()))
+        + f"); max|RR^T - I| {orth:.3g}")
+    require(orth <= 1e-4, f"the rotation is not orthogonal: {orth}")
+
+    arrays = (db.partition_centroids, db.codebooks,
+              db.codes.astype(np.int32), db.partition_indices)
+    index = DeviceIndex(*arrays, layout="bucketed", rotation=rot,
+                        device="cuda")
+    kw = dict(k=K_TOP, nprobe=SIFT_NPROBE)
+    _, first_ms = timed(lambda: index.query(q, **kw))
+    adc, warm_ms = timed(lambda: index.query(q, **kw))
+    recall = recall_at(adc[1], gt)
+    cpu = DeviceIndex(*arrays, layout="bucketed", rotation=rot, device="cpu")
+    swapped = same_arrays((adc[0][:N_CHECK], adc[1][:N_CHECK]),
+                          cpu.query(q[:N_CHECK], **kw)[:2],
+                          "SIFT-OPQ bucketed vs the CPU path")
+    masked = DeviceIndex(*arrays, layout="masked", rotation=rot,
+                         device="cuda")
+    m_d, m_r, m_p = masked.query(q, **kw)
+    require(np.array_equal(m_p, adc[2]), "SIFT-OPQ: layouts probed apart")
+    swapped += same_arrays((m_d, m_r), adc[:2], "SIFT-OPQ masked vs bucketed")
+    log(f"SIFT-OPQ DeviceIndex(layout='bucketed', rotation=R).query("
+        f"{SIFT_NQ}): first {first_ms:.3f} ms, warm {warm_ms:.3f} ms; "
+        f"recall@10 {recall:.4f} (phase 3's {sift['recall']:.4f}); "
+        f"{N_CHECK} queries equal to the CPU path, {SIFT_NQ} to the masked "
+        f"layout ({swapped} tie swaps)")
+    require(recall >= sift["recall"] - 0.02,
+            f"OPQ recall {recall} below phase 3's {sift['recall']} - 0.02")
+
+    fs = ft.LocalFileSystem(work / "sift-opq")
+    root, save_ms = timed(lambda: ft.save_database(db, fs))
+    rotations = list((work / "sift-opq" / "rotations").glob("*.binpb"))
+    require(len(rotations) == 1, f"the tree holds {len(rotations)} "
+            "rotation files")
+    sdb = ft.load_database(fs, f"{root}.binpb", device="cuda")
+    swapped = 0
+    for i in range(N_SINGLE):
+        swapped += same_results(sdb.query(q[i], **kw), db.query(q[i], **kw),
+                                f"SIFT-OPQ cold query[{i}]")
+    _, preload_ms = timed(sdb.preload)
+    require(sdb._dev[0].rotation is not None, "preload dropped the rotation")
+    got, qb_ms = timed(lambda: sdb.query_batch(q, **kw))
+    want = db.query_batch(q, **kw)
+    for b in range(len(q)):
+        require([(r.vector_id, r.squared_distance) for r in got[b]]
+                == [(r.vector_id, r.squared_distance) for r in want[b]],
+                f"SIFT-OPQ preloaded query_batch[{b}] differs")
+    log(f"SIFT-OPQ stored: save_database {save_ms:.3f} ms (rotation "
+        f"{rotations[0].name}); {N_SINGLE} cold queries equal to the "
+        f"in-memory ones ({swapped} tie swaps); preload {preload_ms:.3f} ms "
+        f"({sdb._dev[0].layout} layout); query_batch({SIFT_NQ}) "
+        f"{qb_ms:.3f} ms, every row and distance bit-equal to the in-memory "
+        "database's")
+
+    built = ft.Database(**ft.to_arrays(db), device="cuda")  # before the add
+    rng = np.random.default_rng(seed + 4)
+    new = x[rng.choice(SIFT_N, N_ADD, replace=False)] \
+        + 0.05 * rng.standard_normal((N_ADD, SIFT_M), dtype=np.float32)
+    ids, add_ms = timed(lambda: db.add_vectors(new, seed=seed))
+    res, q_ms = timed(lambda: db.query_batch(new[:N_BATCH], **kw))
+    found = sum(ids[i] in [r.vector_id for r in rs]
+                for i, rs in enumerate(res))
+    ref = ft.Database(**ft.to_arrays(db), device="cpu")
+    swapped = 0
+    for b, want in enumerate(ref.query_batch(new[:16], **kw)):
+        swapped += same_results(res[b], want, f"SIFT-OPQ after add [{b}]")
+    log(f"SIFT-OPQ add_vectors({N_ADD}): {add_ms:.3f} ms; query_batch("
+        f"{N_BATCH}) of added rows {q_ms:.3f} ms, {found} of {N_BATCH} find "
+        f"themselves in their top {K_TOP}; 16 equal to the CPU path "
+        f"({swapped} tie swaps)")
+    return index, built
+
+
+def opq_against_pq(torch, db, base, seed: int) -> None:
+    """The OPQ database's quantization error against phase 3's PQ
+    configuration fitted on the same residuals (the coarse fits of two
+    builds may part: K-B's sums are atomics in any order), and against
+    phase 3's own error."""
+    from flechasdb_tpu_torch.ops import kmeans, opq
+    r = torch.as_tensor(db.residues, device="cuda")
+    divided = r.reshape(len(r), SIFT_D, -1).transpose(0, 1).contiguous()
+    pq = kmeans.fit(divided, C, torch.Generator("cuda").manual_seed(seed))
+    del divided
+    e_same = opq.quantization_error(r, torch.eye(SIFT_M, device="cuda"), pq,
+                                    d=SIFT_D)
+    e_opq, e_base = pq_error(torch, db), pq_error(torch, base)
+    same_coarse = np.array_equal(db.partition_centroids,
+                                 base.partition_centroids)
+    log(f"SIFT-OPQ quantization error a row {e_opq:.4f}; plain PQ on the "
+        f"same residuals {e_same:.4f}; phase 3's PQ {e_base:.4f} (the coarse"
+        f" centroids {'equal' if same_coarse else 'differ from'} phase 3's)")
+    require(e_opq <= e_same, f"OPQ error {e_opq} above plain PQ's {e_same} "
+            "on the same residuals")
+
+
+def fast_opq_run(torch, seed: int, head: dict, sift: dict):
+    """Phase 6: one round's agreement first, then the launch counts are
+    zeroed before the three builds and their queries and read after."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    agree = agreement(torch, head)
+    log(f"one Lloyd round from phase 2's centroids, fast against full: "
+        f"{agree[0]:.5f} of the coarse picks, {agree[1]:.5f} of the PQ picks"
+        " equal")
+    require(agree[0] >= 0.95, f"fast coarse agreement {agree[0]} < 0.95")
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    fast_headline(torch, ft, head, seed)
+    fast_sift(torch, ft, sift, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        index, opq_db = sift_opq(torch, ft, sift, seed, Path(tmp))
+    launches = dict(_kernels.LAUNCHES)
+    log(f"launches over phase 6: {launches}")
+    for name in ("lloyd_round_fast", "lloyd_grouped_fast", "lloyd_round",
+                 "lloyd_grouped", "adc_scan"):
+        require(launches[name] > 0, f"phase 6 launched no {name}")
+    opq_against_pq(torch, opq_db, sift["db"], seed)
+    return launches, scan_at_main_path(torch, index, sift["q"], SIFT_NPROBE,
+                                       "the SIFT-OPQ path's rotated")
+
+
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
         by, ms_by="cuda events", **extra):
     return {"name": name, "route": route, "source": source,
@@ -1394,6 +1725,23 @@ def main() -> None:
                             time_it=False),
                parity_lloyd(torch, gen, 8, N, C, 16, dup=True, grouped=True,
                             time_it=False)]
+    bf_cases = [parity_lloyd(torch, gen, 1, N, P, M, fast=True),
+                parity_lloyd(torch, gen, D, N, C, M // D, fast=True),
+                parity_lloyd(torch, gen, 1, 65_536, 1024, 128, fast=True),
+                parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M,
+                             fast=True),
+                parity_lloyd(torch, gen, D, N, C, M // D, dup=True,
+                             time_it=False, fast=True)]
+    cf_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True,
+                             fast=True),
+                parity_lloyd(torch, gen, 16, N, C, 8, grouped=True,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 4, N, C, 32, grouped=True,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 2, N, 300, 64, grouped=True,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 8, N, C, 16, dup=True, grouped=True,
+                             time_it=False, fast=True)]
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
@@ -1409,17 +1757,21 @@ def main() -> None:
     t0 = time.perf_counter()
     stored_launches, a_stored = stored_run(torch, head, sift)
     log(f"phase 5 (the stored tier): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    fo_launches, a_opq = fast_opq_run(torch, args.seed, head, sift)
+    log(f"phase 6 (fast-math training and OPQ): "
+        f"{time.perf_counter() - t0:.3f} s")
     del head, sift
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd, a_stored]
+    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 6 (K-A times): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 7 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
-                + stored_launches[k] for k in slice_launches}
+                + stored_launches[k] + fo_launches[k] for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),
@@ -1432,6 +1784,12 @@ def main() -> None:
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
             *c_cases[0][1:]),
+        row("lloyd_round_fast", "cuda", SRC_B, REPLACES["round_fast"],
+            launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
+            *bf_cases[1][1:]),
+        row("lloyd_grouped_fast", "cuda", SRC_C, REPLACES["grouped_fast"],
+            launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
+            *cf_cases[0][1:]),
     ]
     log(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

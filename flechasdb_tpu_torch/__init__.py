@@ -2,7 +2,8 @@
 
 The port of the JAX package's build → query paths to PyTorch (the
 bucketed and masked layouts, exact rerank, attribute filters, range search
-and updates of the in-memory database) and of its synchronous stored tier
+and updates of the in-memory database, fast-math training and OPQ) and of
+its synchronous stored tier
 (``save_database`` writes the JAX package's content-addressed tree, byte
 for byte; ``load_database`` reads it lazily, queries cold on the host and,
 after ``StoredDatabase.preload``, serves from the device), with
@@ -13,7 +14,9 @@ hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
 * K-B, the fused Lloyd round of the coarse fit and of PQ fits whose
   subvector width does not divide 128 (``csrc/lloyd_round.cu``);
 * K-C, the fused Lloyd round over division-grouped data, for PQ widths
-  m < 128 that divide 128 (``csrc/lloyd_grouped.cu``).
+  m < 128 that divide 128 (``csrc/lloyd_grouped.cu``);
+* the ``fast_math`` variants of K-B and K-C (one bf16 tensor-core pass),
+  for ``DatabaseBuilder.with_fast_math``.
 
 Work runs on an explicit device, ``"cuda"`` by default. On a CPU tensor
 each kernel's plain PyTorch version runs instead; on a CUDA tensor the

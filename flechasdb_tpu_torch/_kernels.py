@@ -38,9 +38,11 @@ _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: Launches per kernel since the last :func:`reset_launches`.
+#: Launches per kernel since the last :func:`reset_launches`; the
+#: fast_math variants of K-B and K-C count under their own keys.
 LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
-            "lloyd_grouped": 0}
+            "lloyd_grouped": 0, "lloyd_round_fast": 0,
+            "lloyd_grouped_fast": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: The compiler's output of the build this process made (``None`` when the
@@ -98,9 +100,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fdb_adc_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_adc_scan.restype = i
-    lib.fdb_lloyd_round.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fdb_lloyd_round.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_lloyd_round.restype = i
-    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_lloyd_grouped.restype = i
 
 

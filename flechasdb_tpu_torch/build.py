@@ -5,10 +5,13 @@ The build runs on an explicit device, ``"cuda"`` unless asked otherwise:
 
 1. coarse k-means++ / Lloyd over ``[N, M]`` (:mod:`.partitions`),
 2. residues, divided into ``[D, N, M/D]``,
-3. the ``D`` division codebooks trained as one batched fit.
+3. the ``D`` division codebooks trained as one batched fit, or, with
+   ``with_opq``, an OPQ rotation and the codebooks of the rotated
+   residuals (:mod:`.ops.opq`).
 
 Every Lloyd round is kernel K-B, or K-C for PQ subvector widths below 128
-that divide it; every query's bucket scan is kernel K-A.
+that divide it (their ``fast_math`` variants under ``with_fast_math``);
+every query's bucket scan is kernel K-A.
 The :class:`Database` keeps the JAX package's numpy fields, so
 :mod:`.convert` carries a database across in either direction, and the
 same ``with_seed`` gives the same ``vector_ids`` in both packages.
@@ -84,6 +87,8 @@ class DatabaseBuilder:
         self._seed: Optional[int] = None
         self._metric = "l2"
         self._keep_residues = True
+        self._impl: Optional[str] = None
+        self._opq_iters = 0
 
     def with_partitions(self, p: int) -> "DatabaseBuilder":
         if p <= 0:
@@ -104,7 +109,14 @@ class DatabaseBuilder:
         return self
 
     def with_opq(self, iters: int = 8) -> "DatabaseBuilder":
-        raise not_ported("with_opq", 13)
+        """Learns an orthogonal rotation before PQ (:mod:`.ops.opq`), with
+        ``iters`` alternations: lower quantization error at equal code
+        memory. The codes live in the rotated space; queries rotate their
+        residuals (``Database.rotation``)."""
+        if iters <= 0:
+            raise InvalidArgs(f"opq iters must be positive: {iters}")
+        self._opq_iters = iters
+        return self
 
     def with_metric(self, metric: str) -> "DatabaseBuilder":
         """``"l2"`` (default), ``"dot"`` or ``"cosine"``, as in the JAX
@@ -113,8 +125,11 @@ class DatabaseBuilder:
         return self
 
     def with_fast_math(self, on: bool = True) -> "DatabaseBuilder":
-        if on:
-            raise not_ported("with_fast_math", 12)
+        """Trains with ``fast_math`` numerics: every Lloyd round of the
+        coarse and PQ fits (OPQ's too) takes one bf16 pass
+        (:mod:`.ops.lloyd`, the ``"_fast"`` impl). Queries keep full f32.
+        """
+        self._impl = "_fast" if on else None
         return self
 
     def with_seed(self, seed: int) -> "DatabaseBuilder":
@@ -166,18 +181,31 @@ class DatabaseBuilder:
         cluster_events = ((lambda e: events(ev.ClusterEvent(e)))
                           if events is not _noop else _noop)
         xd = torch.as_tensor(x, device=self._device)
-        parts = partition(xd, p, g_coarse, events=cluster_events)
+        parts = partition(xd, p, g_coarse, events=cluster_events,
+                          impl=self._impl)
         del xd
         events(ev.FinishedPartitioning())
 
         events(ev.StartingSubvectorDivision())
-        divided = parts.residues.reshape(n, d, m // d).transpose(0, 1) \
-            .contiguous()                                   # [D, N, m]
+        # OPQ divides the rotated residuals itself.
+        divided = None if self._opq_iters else parts.residues.reshape(
+            n, d, m // d).transpose(0, 1).contiguous()       # [D, N, m]
         events(ev.FinishedSubvectorDivision())
 
+        # All D codebooks train in one batched fit; the JAX package emits
+        # the per-division event pairs around it, and no cluster events
+        # from inside OPQ.
         for i in range(d):
             events(ev.StartingQuantization(i))
-        pq = kmeans.fit(divided, c, g_pq, handler=cluster_events)
+        rotation = None
+        if self._opq_iters:
+            from .ops.opq import fit_opq
+            opq = fit_opq(parts.residues, d, c, g_pq, iters=self._opq_iters,
+                          impl=self._impl)
+            rotation, pq = opq.rotation.cpu().numpy(), opq.pq
+        else:
+            pq = kmeans.fit(divided, c, g_pq, handler=cluster_events,
+                            impl=self._impl)
         del divided
         for i in range(d):
             events(ev.FinishedQuantization(i))
@@ -194,6 +222,7 @@ class DatabaseBuilder:
             codes=pq.indices.T.cpu().numpy().astype(np.uint32),
             residues=(parts.residues.cpu().numpy()
                       if self._keep_residues else None),
+            rotation=rotation,
             metric=self._metric,
             device=str(self._device),
         )
@@ -214,7 +243,7 @@ class Database:
     codebooks: np.ndarray                    # [D, C, m] f32
     codes: np.ndarray                        # [N, D] uint32
     residues: Optional[np.ndarray] = None    # [N, M] f32
-    rotation: Optional[np.ndarray] = None    # OPQ: not ported
+    rotation: Optional[np.ndarray] = None    # [M, M] f32 OPQ rotation
     metric: str = "l2"
     attribute_table: dict = field(default_factory=dict)
     device: str = "cuda"
@@ -253,13 +282,12 @@ class Database:
                     seed: Optional[int] = None) -> List[_uuid.UUID]:
         """Adds vectors without retraining: each goes to its nearest
         partition and is PQ-encoded with the existing codebooks
-        (:func:`.ops.encode.encode`, on this database's device). New ids
+        (:func:`.ops.encode.encode`, on this database's device; in the
+        rotated space under OPQ). New ids
         come from ``seed`` as the JAX package draws them. The next query
         rebuilds the device index."""
         from .ops.encode import encode
 
-        if self.rotation is not None:
-            raise not_ported("An OPQ rotation", 13)
         x = as_vector_set(vs, self.vector_size)
         if self.metric == "cosine":
             x = normalize_rows(x)
@@ -271,7 +299,9 @@ class Database:
         pidx, codes = (t.cpu().numpy() for t in encode(
             torch.tensor(x, device=self.device),
             torch.tensor(self.partition_centroids, device=self.device),
-            torch.tensor(self.codebooks, device=self.device)))
+            torch.tensor(self.codebooks, device=self.device),
+            None if self.rotation is None else torch.tensor(
+                self.rotation, device=self.device)))
         self.partition_indices = np.concatenate(
             [self.partition_indices, pidx.astype(np.int32)])
         self.codes = np.concatenate([self.codes, codes.astype(np.uint32)])

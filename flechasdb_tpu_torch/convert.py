@@ -12,20 +12,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._roadmap import not_ported
 from .build import Database
 
 FIELDS = ("vector_size", "num_partitions", "num_divisions", "num_clusters",
           "vector_ids", "partition_centroids", "partition_indices",
-          "codebooks", "codes", "residues", "metric", "attribute_table")
+          "codebooks", "codes", "residues", "rotation", "metric",
+          "attribute_table")
 
 
 def from_jax_arrays(db, device: str | torch.device = "cuda") -> Database:
     """The port's :class:`Database` on the fields of a JAX package's
-    ``Database`` (or any object that has them)."""
-    if getattr(db, "rotation", None) is not None:
-        raise not_ported("An OPQ rotation", 13)
+    ``Database`` (or any object that has them), the OPQ rotation
+    included."""
     fields = {name: getattr(db, name) for name in FIELDS}
+    if fields["rotation"] is not None:
+        fields["rotation"] = np.asarray(fields["rotation"], np.float32)
     fields["vector_ids"] = list(fields["vector_ids"])
     fields["codes"] = np.asarray(fields["codes"], np.uint32)
     fields["partition_indices"] = np.asarray(fields["partition_indices"],

@@ -1,13 +1,15 @@
 // Device helpers shared by the kernels: cp.async copies (K-A adc_scan.cu,
 // K-B lloyd_round.cu, K-C lloyd_grouped.cu), the tf32 split and the m16n8k8
-// tf32 MMA (K-B and K-C). K-B and K-C split and multiply with these same
-// functions, in the same order, which is what makes their distances equal
-// bit for bit.
+// tf32 MMA (K-B and K-C), and the bf16 rounding, pack and m16n8k16 bf16 MMA
+// of their fast_math variants. K-B and K-C split and multiply with these
+// same functions, in the same order, which is what makes their 3xTF32
+// distances equal bit for bit.
 // The definitions sit in an anonymous namespace, so each kernel's
 // translation unit keeps its own copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +61,34 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to bf16, to nearest even (as XLA's astype(bfloat16) rounds),
+// back in f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// lo and hi rounded to bf16 (to nearest even) in one 32-bit fragment
+// register, lo in the low half: the lower k index, as mma.sync reads it.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b: a 16 x 16 bf16 (row major), b 16 x 8 bf16 (column major), d
+// 16 x 8 f32, in the PTX fragment layouts of m16n8k16: a holds rows g and
+// g + 8 at columns 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2],
+// a[3]); b holds k rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of column
+// g; d is laid out as m16n8k8's. The products of bf16 values are exact in
+// f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -9,6 +9,9 @@ PyTorch gathers and full-f32 products. Top-nprobe is a stable ascending
 sort and top-k an integer top-k over (key, row) pairs
 (:func:`smallest_k`); both keep ``lax.top_k``'s lower-index rule on ties.
 Range search (:func:`range_masked_scan`) returns every row's key instead.
+With an OPQ ``rotation [M, M]`` the codes live in the rotated space: the
+residual (L2) or the query (dot) is rotated before the tables are built,
+in full f32 as every product here; coarse scores do not change.
 """
 
 from __future__ import annotations
@@ -30,29 +33,45 @@ def coarse_scores(q: torch.Tensor, centroids: torch.Tensor,
     return sqdist(q, centroids)
 
 
+def _rotated(v: torch.Tensor,
+             rotation: Optional[torch.Tensor]) -> torch.Tensor:
+    """``v @ rotation`` in full f32 (``v`` itself without a rotation)."""
+    if rotation is None:
+        return v
+    with full_f32():
+        return torch.matmul(v, rotation)
+
+
+@full_f32()
 def _dot_tables(q: torch.Tensor, codebooks: torch.Tensor,
-                cent_scores: torch.Tensor) -> torch.Tensor:
+                cent_scores: torch.Tensor,
+                rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MIPS ADC tables ``[B, J, D, C]`` with the per-partition scalar
-    folded in: ``t[b, j, d, c] = −⟨q_d, cb[d, c]⟩ + cent_scores[b, j]/D``,
-    so the lookup-sum over d yields ``−⟨q, x̂⟩``."""
+    folded in: ``t[b, j, d, c] = −⟨q'_d, cb[d, c]⟩ + cent_scores[b, j]/D``
+    with ``q' = q @ R`` under OPQ (R is orthogonal, so ``⟨q, r⟩ = ⟨qR,
+    rR⟩``), so the lookup-sum over d yields ``−⟨q, x̂⟩``."""
     b, _ = q.shape
     d, _, sub = codebooks.shape
-    qc = torch.einsum("bds,dcs->bdc", q.reshape(b, d, sub), codebooks)
+    qc = torch.einsum("bds,dcs->bdc",
+                      _rotated(q, rotation).reshape(b, d, sub), codebooks)
     return cent_scores[..., None, None] / d - qc[:, None, :, :]
 
 
 @full_f32()
 def adc_tables(q: torch.Tensor, centroids: torch.Tensor,
                codebooks: torch.Tensor,
+               rotation: Optional[torch.Tensor] = None,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Coarse distances and L2 ADC tables for every partition: ``(coarse
     [B, P], tables [B, P, D, C])``, ``tables[b, p, d, c] = ‖(q_b −
-    cent_p)_d − cb[d, c]‖²`` clamped at 0."""
+    cent_p)_d − cb[d, c]‖²`` clamped at 0, the residual rotated by the
+    OPQ ``rotation`` before division when given."""
     b, _ = q.shape
     p = centroids.shape[0]
     d, _, sub = codebooks.shape
     coarse = sqdist(q, centroids)
-    resid = (q[:, None, :] - centroids[None, :, :]).reshape(b, p, d, sub)
+    resid = _rotated(q[:, None, :] - centroids[None, :, :], rotation) \
+        .reshape(b, p, d, sub)
     rr = (resid * resid).sum(dim=-1)                        # [B, P, D]
     cc = (codebooks * codebooks).sum(dim=-1)                # [D, C]
     rc = torch.einsum("bpds,dcs->bpdc", resid, codebooks)
@@ -66,20 +85,23 @@ def adc_tables(q: torch.Tensor, centroids: torch.Tensor,
 def masked_scan_keys(q: torch.Tensor, centroids: torch.Tensor,
                      codebooks: torch.Tensor, codes: torch.Tensor,
                      pidx: torch.Tensor, metric: str = "l2",
+                     rotation: Optional[torch.Tensor] = None,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every row's ADC ranking key over the flat layout: ``(vdist [B, N],
     coarse [B, P])``. L2 gathers from per-partition tables ``[B, P, D,
     C]``; dot decomposes as ``coarse[pidx] − Σ_d ⟨q_d, cb[d, code]⟩`` and
     builds only a ``[B, D, C]`` table. The sum over d accumulates one
-    ``[B, N]`` gather a division, so no ``[B, N, D]`` gather is held."""
+    ``[B, N]`` gather a division, so no ``[B, N, D]`` gather is held.
+    ``rotation``: the OPQ rotation the codes were made in."""
     b, _ = q.shape
     d, c, sub = codebooks.shape
     if metric == "dot":
         coarse = coarse_scores(q, centroids, metric)
-        qc = torch.einsum("bds,dcs->bdc", q.reshape(b, d, sub), codebooks)
+        qc = torch.einsum("bds,dcs->bdc",
+                          _rotated(q, rotation).reshape(b, d, sub), codebooks)
         flat, base = qc.reshape(b, d * c), 0
     else:
-        coarse, tables = adc_tables(q, centroids, codebooks)
+        coarse, tables = adc_tables(q, centroids, codebooks, rotation)
         flat, base = tables.reshape(b, -1), pidx.long() * (d * c)
 
     def column(j: int) -> torch.Tensor:                    # [B, N]
@@ -119,11 +141,12 @@ def _probed_keys(q: torch.Tensor, centroids: torch.Tensor,
                  codebooks: torch.Tensor, codes: torch.Tensor,
                  pidx: torch.Tensor, row_mask: Optional[torch.Tensor],
                  nprobe: int, metric: str,
+                 rotation: Optional[torch.Tensor],
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(vdist [B, N], probed [B, nprobe])``: every row's key, ``+inf``
     in the partitions not probed and where ``row_mask`` is False."""
     vdist, coarse = masked_scan_keys(q, centroids, codebooks, codes, pidx,
-                                     metric)
+                                     metric, rotation)
     probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
     keep = torch.zeros_like(coarse, dtype=torch.bool).scatter_(
         1, probed, True)[:, pidx.long()]
@@ -137,14 +160,16 @@ def query_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
                       pidx: torch.Tensor,
                       row_mask: Optional[torch.Tensor] = None, *,
                       k: int, nprobe: int, metric: str = "l2",
+                      rotation: Optional[torch.Tensor] = None,
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched IVF-PQ k-NN over the flat layout: ``(distances [B, k], rows
     [B, k] int32, probed [B, nprobe] int32)``, ``+inf`` past the reachable
     vectors. ``row_mask [N] bool`` (optional) excludes the rows whose
-    entry is False (attribute filters, :mod:`..filters`)."""
+    entry is False (attribute filters, :mod:`..filters`); ``rotation``
+    is the OPQ rotation the codes were made in."""
     n = codes.shape[0]
     vdist, probed = _probed_keys(q, centroids, codebooks, codes, pidx,
-                                 row_mask, nprobe, metric)
+                                 row_mask, nprobe, metric, rotation)
     kk = min(k, n)
     dist, rows = smallest_k(vdist, kk)
     if kk < k:
@@ -158,10 +183,11 @@ def range_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
                       pidx: torch.Tensor,
                       row_mask: Optional[torch.Tensor] = None, *,
                       nprobe: int, metric: str = "l2",
+                      rotation: Optional[torch.Tensor] = None,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Range-search candidates on the flat layout: ``(keys [B, N], probed
     [B, nprobe] int32)``, non-candidates at ``+inf``; column ``i`` is
     corpus row ``i``. The caller thresholds on the host."""
     vdist, probed = _probed_keys(q, centroids, codebooks, codes, pidx,
-                                 row_mask, nprobe, metric)
+                                 row_mask, nprobe, metric, rotation)
     return vdist, probed.to(torch.int32)

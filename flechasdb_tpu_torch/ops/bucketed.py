@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..host import bucket_len
-from .adc import _dot_tables, coarse_scores
+from .adc import _dot_tables, _rotated, coarse_scores
 from .distance import full_f32
 from .scan import adc_lookup_indexed
 
@@ -76,12 +76,14 @@ def bucketize(codes: np.ndarray, pidx: np.ndarray, p: int,
 def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
                   codebooks: torch.Tensor, probed: torch.Tensor,
                   metric: str = "l2",
-                  coarse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  coarse: Optional[torch.Tensor] = None,
+                  rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ADC tables ``[B, nprobe, D, C]`` for the probed partitions only.
 
-    L2: ``‖(q − centroid_p)_d − cb[d, c]‖²``, clamped at 0. Dot: the
-    :func:`.adc._dot_tables` decomposition, its per-probe scalars gathered
-    from ``coarse [B, P]`` when given."""
+    L2: ``‖(q − centroid_p)_d − cb[d, c]‖²``, clamped at 0, the residual
+    rotated by the OPQ ``rotation`` first when given (the codes live in
+    the rotated space). Dot: the :func:`.adc._dot_tables` decomposition,
+    its per-probe scalars gathered from ``coarse [B, P]`` when given."""
     b = q.shape[0]
     nprobe = probed.shape[1]
     d, c, sub = codebooks.shape
@@ -91,8 +93,9 @@ def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
         else:
             pc = centroids[probed]                          # [B, nprobe, M]
             cent_scores = -torch.einsum("bm,bjm->bj", q, pc)
-        return _dot_tables(q, codebooks, cent_scores)
-    resid = (q[:, None, :] - centroids[probed]).reshape(b, nprobe, d, sub)
+        return _dot_tables(q, codebooks, cent_scores, rotation)
+    resid = _rotated(q[:, None, :] - centroids[probed], rotation) \
+        .reshape(b, nprobe, d, sub)
     rr = (resid * resid).sum(dim=-1)                        # [B, nprobe, D]
     cc = (codebooks * codebooks).sum(dim=-1)                # [D, C]
     rc = torch.einsum("bjds,dcs->bjdc", resid, codebooks)
@@ -101,7 +104,8 @@ def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
 
 def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
                 codebooks: torch.Tensor, buckets: Buckets, nprobe: int,
-                metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+                metric: str, rotation: Optional[torch.Tensor],
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Steps 1–3: ``(vdist [B, nprobe, L], probed [B, nprobe])``. K-A
     takes the buckets' lengths, so pad slots come back ``+inf``."""
     b = q.shape[0]
@@ -110,7 +114,8 @@ def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
 
     coarse = coarse_scores(q, centroids, metric)            # [B, P]
     probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-    tables = probed_tables(q, centroids, codebooks, probed, metric, coarse)
+    tables = probed_tables(q, centroids, codebooks, probed, metric, coarse,
+                           rotation)
     lens = buckets.lengths[probed]                          # [B, nprobe]
     vdist = adc_lookup_indexed(
         buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
@@ -130,6 +135,7 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None, *,
                    k: int, nprobe: int, metric: str = "l2",
                    approx: bool | float = False,
+                   rotation: Optional[torch.Tensor] = None,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched pruned IVF-PQ k-NN: ``(distances [B, k], rows [B, k] int32,
     probed [B, nprobe] int32)``, ``+inf`` past the reachable vectors.
@@ -137,11 +143,12 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     ``row_mask [N] bool`` (optional, on the buckets' device) excludes the
     corpus rows whose entry is False (attribute filters, :mod:`..filters`).
     ``approx`` is accepted and answered exactly, as the JAX package does
-    off the TPU."""
+    off the TPU. ``rotation``: the OPQ rotation the codes were made in
+    (K-A scans the rotated tables unchanged)."""
     b = q.shape[0]
     l = buckets.codes.shape[2]
     vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
-                                metric)
+                                metric, rotation)
     if row_mask is not None:                  # one gather and select
         vdist = vdist.masked_fill(~_kept(buckets.rows[probed], row_mask),
                                   float("inf"))
@@ -161,6 +168,7 @@ def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
                    codebooks: torch.Tensor, buckets: Buckets,
                    row_mask: Optional[torch.Tensor] = None, *,
                    nprobe: int, metric: str = "l2",
+                   rotation: Optional[torch.Tensor] = None,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Range-search candidates: every probed vector's ADC key, ``(keys [B,
     nprobe·L], rows [B, nprobe·L] int32, probed [B, nprobe] int32)`` in
@@ -173,7 +181,7 @@ def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     is already ``-1`` in :class:`Buckets`."""
     b = q.shape[0]
     vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
-                                metric)
+                                metric, rotation)
     rows = buckets.rows[probed]                             # [B, nprobe, L]
     if row_mask is not None:
         drop = ~_kept(rows, row_mask)

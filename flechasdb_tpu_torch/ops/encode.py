@@ -4,27 +4,35 @@
 Nothing is retrained: a vector goes to its nearest partition centroid and
 its residual to the nearest codeword of each division, exactly as a query
 would see it. Both argmins are :func:`.distance.assign_chunked` (full-f32
-products, the first minimum on ties).
+products, the first minimum on ties). With an OPQ rotation the residuals
+are rotated, in full f32, before the codebook argmin: codes live in the
+rotated space.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .adc import _rotated
 from .distance import assign_chunked
 
 
 def encode(x: torch.Tensor, centroids: torch.Tensor,
-           codebooks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x [N, M]``, ``centroids [P, M]``, ``codebooks [D, C, M/D]`` →
-    ``(pidx [N], codes [N, D])``, in the narrowest dtype that holds the
-    index range, as the JAX package returns them: ``uint16`` pidx when P
-    <= 65536, ``uint8`` codes when C <= 256, else ``int32``."""
+           codebooks: torch.Tensor,
+           rotation: Optional[torch.Tensor] = None,
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [N, M]``, ``centroids [P, M]``, ``codebooks [D, C, M/D]`` and
+    an optional OPQ ``rotation [M, M]`` → ``(pidx [N], codes [N, D])``, in
+    the narrowest dtype that holds the index range, as the JAX package
+    returns them: ``uint16`` pidx when P <= 65536, ``uint8`` codes when C
+    <= 256, else ``int32``."""
     n, _ = x.shape
     p = centroids.shape[0]
     d, c, sub = codebooks.shape
     pidx = assign_chunked(x[None], centroids[None])[0][0]
-    residues = x - centroids[pidx.long()]
+    residues = _rotated(x - centroids[pidx.long()], rotation)
     divided = residues.reshape(n, d, sub).transpose(0, 1)     # [D, N, m]
     codes = assign_chunked(divided, codebooks)[0]              # [D, N]
     pdt = torch.uint16 if p <= (1 << 16) else torch.int32

@@ -15,6 +15,10 @@ The same semantics, carried over:
   against its pre-update centroids; entries that exhaust ``max_rounds``
   are reassigned against their final centroids.
 * Empty clusters keep their previous centroid.
+* ``impl`` takes the JAX package's ``_fast`` suffix (:func:`_impl_parts`):
+  ``"round_fast"``, ``"grouped_fast"`` or bare ``"_fast"`` (the kernel
+  :func:`_auto_impl` picks) run every round and the final reassignment
+  with ``fast_math`` numerics, one bf16 pass (:mod:`.lloyd`).
 
 PyTorch runs eagerly, so one host loop serves the JAX package's ``fit``
 and ``fit_with_events``: the events of its ``fit_with_events`` fire when
@@ -30,7 +34,6 @@ from typing import NamedTuple
 import torch
 
 from .. import events as ev
-from .._roadmap import not_ported
 from ..events import EventHandler, _noop
 from .distance import assign_chunked, sqdist_one
 from .lloyd import (GROUP_WIDTH, lloyd_round, lloyd_round_grouped,
@@ -140,14 +143,26 @@ def _auto_impl(x: torch.Tensor) -> str:
     return "round"
 
 
-def _resolve_impl(impl: str | None, x: torch.Tensor) -> str:
+def _impl_parts(impl: str | None) -> "tuple[str | None, bool]":
+    """Splits the ``_fast`` suffix off an ``impl`` string (the JAX
+    package's ``kmeans._impl_parts``): ``"round_fast"`` → ``("round",
+    True)``, bare ``"_fast"`` → ``(None, True)`` (the auto kernel with
+    fast numerics), ``None`` → ``(None, False)``."""
     if impl is not None and impl.endswith("_fast"):
-        raise not_ported(f"impl={impl!r} (fast_math numerics)", 12)
-    if impl is None:
-        return _auto_impl(x)
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl: {impl!r} (expected one of {IMPLS})")
-    return impl
+        return (impl[:-len("_fast")] or None), True
+    return impl, False
+
+
+def _resolve_impl(impl: str | None, x: torch.Tensor) -> str:
+    """Auto-resolves the kernel while preserving a ``_fast`` suffix; an
+    unknown kernel name raises ``ValueError``."""
+    base, fast = _impl_parts(impl)
+    if base is None:
+        base = _auto_impl(x)
+    if base not in IMPLS:
+        raise ValueError(f"unknown impl: {impl!r} (expected one of {IMPLS},"
+                         " each optionally with the suffix '_fast')")
+    return base + "_fast" if fast else base
 
 
 def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
@@ -159,10 +174,11 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     ``N == k`` is one vector a cluster (``kmeans.rs:158-169``).
     ``handler`` receives the clustering events of the JAX package's
     ``fit_with_events``. ``impl`` picks the round kernel (:data:`IMPLS`;
-    ``None`` applies :func:`_auto_impl`); for ``"grouped"`` the data is
-    regrouped once, outside the Lloyd loop, and the final reassignment
-    goes through the same kernel."""
-    impl = _resolve_impl(impl, x)
+    ``None`` applies :func:`_auto_impl`; a ``_fast`` suffix selects the
+    ``fast_math`` numerics); for ``"grouped"`` the data is regrouped once,
+    outside the Lloyd loop, and the final reassignment goes through the
+    same kernel."""
+    impl, fast = _impl_parts(_resolve_impl(impl, x))
     b, n, m = x.shape
     dev = x.device
     if n < k:
@@ -185,10 +201,10 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
         xg = regroup_divisions(x)
 
         def round_fn(c):
-            return lloyd_round_grouped(xg, c)
+            return lloyd_round_grouped(xg, c, fast)
     else:
         def round_fn(c):
-            return lloyd_round(x, c)
+            return lloyd_round(x, c, fast)
 
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for r in range(max_rounds):

@@ -26,6 +26,14 @@ round with the cluster sums fused: the same 3xTF32 tensor-core product in
 K-B's order, so its distances, and so its indices, equal K-B's on the
 ungrouped data; on a CPU tensor it runs :func:`lloyd_round_grouped_plain`.
 The source note is at the top of ``csrc/lloyd_grouped.cu``.
+
+``fast_math=True`` on either is the TPU kernels' ``fast_math`` branch:
+the cross term is one bf16 pass (x and the centroids rounded to bf16, to
+nearest even, their products accumulated in f32; ``‖c‖²`` stays f32 from
+the f32 centroids) and the sums add the bf16-rounded x. On a CUDA tensor
+it launches the kernel's fast variant (``mma.sync.m16n8k16`` bf16),
+counted under ``lloyd_round_fast`` / ``lloyd_grouped_fast``; on a CPU
+tensor the plain version computes the same function.
 """
 
 from __future__ import annotations
@@ -46,14 +54,24 @@ GROUP_WIDTH = 128
 GROUPED_WIDTHS = (8, 16, 32, 64)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even), back in f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 @full_f32()
 def lloyd_round_plain(x: torch.Tensor, centroids: torch.Tensor,
+                      fast_math: bool = False,
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked ``‖c‖² − 2 x·cᵀ`` in f32, ``torch.argmin`` (first minimum)
-    and ``index_add_`` sums."""
+    and ``index_add_`` sums. ``fast_math``: x and the centroids rounded to
+    bf16 first (their products are exact in f32), ``‖c‖²`` from the f32
+    centroids, and the sums of the rounded x."""
     b, n, m = x.shape
     k = centroids.shape[1]
     cc = (centroids * centroids).sum(dim=-1)                # [B, K]
+    if fast_math:
+        x, centroids = _bf16(x), _bf16(centroids)
     idx = torch.empty((b, n), dtype=torch.int32, device=x.device)
     ct = centroids.transpose(1, 2)
     for s in range(0, n, _CHUNK):
@@ -125,6 +143,7 @@ def regroup_divisions(x: torch.Tensor) -> torch.Tensor:
 
 
 def lloyd_round_grouped_plain(xg: torch.Tensor, centroids: torch.Tensor,
+                              fast_math: bool = False,
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Ungroups ``xg`` and runs :func:`lloyd_round_plain`."""
@@ -132,16 +151,17 @@ def lloyd_round_grouped_plain(xg: torch.Tensor, centroids: torch.Tensor,
     gg, n, _ = xg.shape
     x = xg.reshape(gg, n, GROUP_WIDTH // m, m).transpose(1, 2) \
         .reshape(-1, n, m)[:b].contiguous()
-    return lloyd_round_plain(x, centroids)
+    return lloyd_round_plain(x, centroids, fast_math)
 
 
 def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
+                        fast_math: bool = False,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Lloyd round over division-grouped data; see the module
     docstring."""
     _check_grouped(xg, centroids)
     if xg.device.type == "cpu":
-        return lloyd_round_grouped_plain(xg, centroids)
+        return lloyd_round_grouped_plain(xg, centroids, fast_math)
     if xg.device.type != "cuda":
         raise ValueError(f"unsupported device: {xg.device}")
     b, k, m = centroids.shape
@@ -165,18 +185,20 @@ def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
         rc = lib.fdb_lloyd_grouped(
             xg.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
             idx.data_ptr(), sums.data_ptr(), counts.data_ptr(), b, gg, n, k,
-            m, _kernels.stream_of(xg))
-    _kernels.check(rc, "lloyd_grouped")
-    _kernels.LAUNCHES["lloyd_grouped"] += 1
+            m, int(fast_math), _kernels.stream_of(xg))
+    name = "lloyd_grouped_fast" if fast_math else "lloyd_grouped"
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return idx, sums, counts
 
 
 def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
+                fast_math: bool = False,
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused assignment + cluster-sum pass; see the module docstring."""
     _check(x, centroids)
     if x.device.type == "cpu":
-        return lloyd_round_plain(x, centroids)
+        return lloyd_round_plain(x, centroids, fast_math)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device: {x.device}")
     b, n, m = x.shape
@@ -196,7 +218,8 @@ def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
         rc = lib.fdb_lloyd_round(
             x.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
             idx.data_ptr(), sums.data_ptr(), counts.data_ptr(), b, n, k, m,
-            int(vec), _kernels.stream_of(x))
-    _kernels.check(rc, "lloyd_round")
-    _kernels.LAUNCHES["lloyd_round"] += 1
+            int(vec), int(fast_math), _kernels.stream_of(x))
+    name = "lloyd_round_fast" if fast_math else "lloyd_round"
+    _kernels.check(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return idx, sums, counts

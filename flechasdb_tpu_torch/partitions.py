@@ -20,8 +20,12 @@ class Partitions(NamedTuple):
 
 
 def partition(x: torch.Tensor, p: int, generator: torch.Generator,
-              events: EventHandler = _noop) -> Partitions:
-    """Clusters ``x [N, M]`` into ``p`` partitions and computes residues."""
-    res = kmeans.fit(x[None], p, generator, handler=events)
+              events: EventHandler = _noop,
+              impl: str | None = None) -> Partitions:
+    """Clusters ``x [N, M]`` into ``p`` partitions and computes residues.
+    ``impl`` selects the Lloyd round's kernel and numerics, as in
+    :func:`.ops.kmeans.fit` (e.g. ``"_fast"``: the auto kernel with
+    ``fast_math`` numerics)."""
+    res = kmeans.fit(x[None], p, generator, handler=events, impl=impl)
     centroids, indices = res.centroids[0], res.indices[0]
     return Partitions(centroids, indices, x - centroids[indices.long()])

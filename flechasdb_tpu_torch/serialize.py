@@ -16,8 +16,8 @@ A copy of the JAX package's ``serialize.py`` over the port's
 given in :mod:`.errors`: the same arrays give the same tree, byte for byte
 (``tests/test_torch_stored.py``). The pack pool is sized from the CPUs
 this process may run on (:func:`.host.usable_cpus`); the bytes do not
-depend on its size. The port's ``Database`` carries no OPQ rotation, so
-the root's ``rotation_id`` stays empty.
+depend on its size. An OPQ rotation is saved under ``rotations/`` as a
+VectorSet, named by the root's extension field ``rotation_id``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from typing import List
 
 import numpy as np
 
-from ._roadmap import not_ported
 from .build import Database
 from .host import usable_cpus
 from .io import FileSystem
@@ -67,8 +66,6 @@ def save_database(db: Database, fs: FileSystem) -> str:
     byte-identical to the serial walk — ``test_golden*`` resave checks
     pin that — only the wall time changes.
     """
-    if getattr(db, "rotation", None) is not None:
-        raise not_ported("An OPQ rotation", 13)
     attribute_names = _sorted_attribute_names(db)
     with ThreadPoolExecutor(_pack_workers(db.num_partitions + 4)) as pool:
         partition_ids = _save_partitions(db, fs, pool)
@@ -82,6 +79,11 @@ def save_database(db: Database, fs: FileSystem) -> str:
             db, partition_ids, attribute_names, fs, pool)
         partition_centroids_id = cents_f.result()
         codebook_ids = [f.result() for f in codebook_fs]
+    rotation_id = ""
+    if getattr(db, "rotation", None) is not None:
+        # OPQ extension artifact; see protos.messages.PDatabase.rotation_id.
+        rotation_id = _save_vector_set(db.rotation, fs, "rotations")
+
     root = PDatabase(
         vector_size=db.vector_size,
         num_partitions=db.num_partitions,
@@ -92,7 +94,7 @@ def save_database(db: Database, fs: FileSystem) -> str:
         codebook_ids=codebook_ids,
         attributes_log_ids=attributes_log_ids,
         attribute_names=attribute_names,
-        rotation_id="",
+        rotation_id=rotation_id,
         # "" for L2 keeps the root byte-identical to the reference format;
         # non-L2 writes extension field 21 (see :mod:`.host`).
         metric=("" if getattr(db, "metric", "l2") in ("", "l2")

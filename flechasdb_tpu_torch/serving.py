@@ -15,7 +15,8 @@ Exact rerank (:meth:`DeviceIndex.query_rerank`) re-scores the top ADC
 candidates against the original vectors on the device. Every query takes
 an optional ``row_mask [N] bool`` (attribute filters). Range search
 (:meth:`DeviceIndex.query_range`) scans as a query does and thresholds
-every candidate on the host.
+every candidate on the host. An OPQ ``rotation`` is uploaded once and
+rotates every query's tables (:mod:`.ops.adc`, :mod:`.ops.bucketed`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ._roadmap import not_ported
 from .host import check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
 from .ops.bucketed import bucketize, query_bucketed, range_bucketed
@@ -110,7 +110,8 @@ def _host(*ts: torch.Tensor) -> tuple[np.ndarray, ...]:
 class DeviceIndex:
     """IVF-PQ index held on ``device`` (``"cuda"`` by default), ready for
     batched queries. ``layout`` is ``"bucketed"``, ``"masked"`` or ``None``
-    (the JAX package's policy)."""
+    (the JAX package's policy); ``rotation [M, M]`` is the OPQ rotation
+    the codes were made in."""
 
     def __init__(self, centroids: np.ndarray, codebooks: np.ndarray,
                  codes: np.ndarray, pidx: np.ndarray,
@@ -119,8 +120,6 @@ class DeviceIndex:
                  hbm_budget_bytes: int = HBM_BUDGET_BYTES,
                  metric: str = "l2",
                  device: str | torch.device = "cuda") -> None:
-        if rotation is not None:
-            raise not_ported("An OPQ rotation", 13)
         self.hbm_budget_bytes = hbm_budget_bytes
         # Cosine is L2 over unit vectors: the database layer normalizes.
         self.metric = "dot" if check_metric(metric) == "dot" else "l2"
@@ -136,6 +135,8 @@ class DeviceIndex:
             np.asarray(centroids, np.float32), device=self.device)
         self.codebooks = torch.tensor(
             np.asarray(codebooks, np.float32), device=self.device)
+        self.rotation = None if rotation is None else torch.tensor(
+            np.asarray(rotation, np.float32), device=self.device)
         self.buckets = self.codes = self.pidx = None
         if layout == "bucketed":
             self.buckets = bucketize(np.asarray(codes, np.int32),
@@ -171,12 +172,14 @@ class DeviceIndex:
         if self.layout == "bucketed":
             return query_bucketed(qd, self.centroids, self.codebooks,
                                   self.buckets, row_mask, k=k, nprobe=nprobe,
-                                  metric=self.metric, approx=approx)
+                                  metric=self.metric, approx=approx,
+                                  rotation=self.rotation)
         limit = self._masked_batch_limit()
         parts = [query_masked_scan(qd[i:i + limit], self.centroids,
                                    self.codebooks, self.codes, self.pidx,
                                    row_mask, k=k, nprobe=nprobe,
-                                   metric=self.metric)
+                                   metric=self.metric,
+                                   rotation=self.rotation)
                  for i in range(0, len(qd), limit)]
         return tuple(torch.cat(ts) for ts in zip(*parts))
 
@@ -226,14 +229,16 @@ class DeviceIndex:
             for i in range(0, len(qd), limit):
                 keys, rows, _ = range_bucketed(
                     qd[i:i + limit], self.centroids, self.codebooks,
-                    self.buckets, mask, nprobe=nprobe, metric=self.metric)
+                    self.buckets, mask, nprobe=nprobe, metric=self.metric,
+                    rotation=self.rotation)
                 out += _range_host_tail(*_host(keys, rows), radius)
             return out
         limit = self._masked_batch_limit()
         for i in range(0, len(qd), limit):
             keys, = _host(range_masked_scan(
                 qd[i:i + limit], self.centroids, self.codebooks, self.codes,
-                self.pidx, mask, nprobe=nprobe, metric=self.metric)[0])
+                self.pidx, mask, nprobe=nprobe, metric=self.metric,
+                rotation=self.rotation)[0])
             rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
                                    keys.shape)
             out += _range_host_tail(keys, rows, radius)

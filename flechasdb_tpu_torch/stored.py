@@ -24,8 +24,8 @@ A port of the JAX package's ``stored.py`` (for the reason given in
 :mod:`.errors`), held against it by ``tests/test_torch_stored.py``: the
 same lazy loads, host scan, results, events and messages. What differs:
 the device is explicit (``load_database(..., device=)``, ``"cuda"`` by
-default); ``preload(mesh=)`` and a stored OPQ rotation on the device path
-raise ``NotImplementedError`` naming their ROADMAP item; after
+default); ``preload(mesh=)`` raises ``NotImplementedError`` naming its
+ROADMAP item; after
 ``preload``, ``query_range`` is served from the device index too; and the
 thread pools are sized from the CPUs this process may run on.
 """
@@ -944,14 +944,12 @@ class StoredDatabase:
         Residues are not part of the wire format (``database.proto``), so
         the materialized database cannot :meth:`Database.reconstruct` or
         exact-rerank; everything else (query, filters, attributes,
-        updates, re-save) works. It serves from this database's device. A
-        stored OPQ rotation raises ``NotImplementedError`` (the port's
-        ``Database`` has none yet).
+        updates, re-save) works. It serves from this database's device,
+        with the stored OPQ rotation when there is one.
         """
         from .build import Database
 
-        if self.root.rotation_id:
-            raise not_ported("An OPQ rotation", 13)
+        rotation = self._load_rotation()
         centroids = self._load_partition_centroids()
         codebooks = self._load_codebooks()
         parts = self._load_all_partitions(events, max_workers)
@@ -986,6 +984,7 @@ class StoredDatabase:
             codebooks=np.array(codebooks),
             codes=codes.astype(np.uint32, copy=False),
             residues=None,
+            rotation=None if rotation is None else np.array(rotation),
             metric=self.metric,
             attribute_table=table,
             device=self.device,
@@ -999,9 +998,10 @@ class StoredDatabase:
         After this, :meth:`query`, :meth:`query_batch` and
         :meth:`query_range` are served from :class:`.serving.DeviceIndex`
         — the warm serving mode — in the layout the JAX package's policy
-        picks (on the card, a bucketed index scans with kernel K-A). A
-        ``mesh`` (the JAX package's sharded serving) and a stored OPQ
-        rotation are not ported yet and raise ``NotImplementedError``.
+        picks (on the card, a bucketed index scans with kernel K-A), with
+        the stored OPQ rotation when there is one. A ``mesh`` (the JAX
+        package's sharded serving) is not ported yet and raises
+        ``NotImplementedError``.
 
         Partition files load CONCURRENTLY on a thread pool — the native
         inflate+hash pass releases the GIL, so open→inflate→decode
@@ -1017,8 +1017,7 @@ class StoredDatabase:
             raise not_ported("A sharded preload (mesh=)", 20)
         centroids = self._load_partition_centroids()
         codebooks = self._load_codebooks()
-        if self._load_rotation() is not None:
-            raise not_ported("An OPQ rotation", 13)
+        rotation = self._load_rotation()
         parts = self._load_all_partitions(events, max_workers)
         codes = np.concatenate([p.codes for p in parts]) \
             if parts else np.zeros((0, self.num_divisions), np.uint32)
@@ -1029,7 +1028,8 @@ class StoredDatabase:
         vector_ids = [vid for p in parts for vid in p.vector_ids]
         local = _local_indices(pidx, self.num_partitions)
         index = DeviceIndex(centroids, codebooks, codes.astype(np.int32),
-                            pidx, metric=self.metric, device=self.device)
+                            pidx, rotation=rotation, metric=self.metric,
+                            device=self.device)
         self._dev = (index, pidx, local, vector_ids)
 
     def query_batch(self, vs, k: int, nprobe: int,

@@ -6,10 +6,9 @@
 independent writer (protoc codec, stdlib zlib and hashlib), ``extgolden``
 with the extension fields (metric ``dot`` and an OPQ rotation). The port
 reads all three without jax; cold queries on the host give the recorded
-results, and so does ``goldendb`` served from the port's device index
-after ``preload``. A rotation is not ported to the device path yet, so
-``extgolden``'s ``preload`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+results, and so do ``goldendb`` and ``extgolden`` (its rotation on the
+device, through the dot tables) served from the port's device index
+after ``preload``.
 """
 
 import json
@@ -153,10 +152,23 @@ def test_extgolden_queries_cold_with_its_rotation(extgolden):
 
 
 def test_extgolden_device_path_names_item_13(extgolden):
+    """The device path carries the stored rotation: ``preload`` serves the
+    recorded results, equal to the cold path's; ``to_database`` and
+    ``query_batch`` carry the rotation too."""
     db, q = extgolden
-    for call in (db.preload, db.to_database,
-                 lambda: db.query_batch(q[None], k=4, nprobe=1)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
-    assert db._dev is None
-    assert len(db.query(q, k=4, nprobe=db.num_partitions)) == 4
+    nprobe = db.num_partitions
+    cold = db.query(q, k=4, nprobe=nprobe)
+    _check(cold, _expected("extgolden"))
+    mem = db.to_database()
+    np.testing.assert_array_equal(mem.rotation, db._load_rotation())
+    _check(mem.query(q, k=4, nprobe=nprobe), _expected("extgolden"))
+    db.preload()
+    assert db._dev is not None and db._dev[0].rotation is not None
+    warm = db.query(q, k=4, nprobe=nprobe)
+    _check(warm, _expected("extgolden"))
+    assert [r.vector_id for r in warm] == [r.vector_id for r in cold]
+    np.testing.assert_allclose([r.squared_distance for r in warm],
+                               [r.squared_distance for r in cold],
+                               rtol=1e-4, atol=1e-5)
+    batch, = db.query_batch(q[None], k=4, nprobe=nprobe)
+    assert [r.vector_id for r in batch] == [r.vector_id for r in cold]

@@ -234,8 +234,8 @@ def test_device_index_matches_jax(metric):
 
 def test_device_index_masked_layout_matches_jax_and_opq_raises():
     """A corpus with one huge bucket takes the masked layout, as in the
-    JAX package, and answers the same; an OPQ rotation still raises,
-    naming ROADMAP item 13."""
+    JAX package, and answers the same, with an OPQ rotation too (both
+    layouts, l2 and dot)."""
     rng = np.random.default_rng(16)
     centroids, codebooks, codes, _ = _index(rng, n=700, p=64)
     pidx = np.zeros(700, np.int32)                      # one huge bucket
@@ -246,9 +246,17 @@ def test_device_index_masked_layout_matches_jax_and_opq_raises():
     got, want = mine.query(q, 10, 2), ref.query(q, 10, 2)
     np.testing.assert_array_equal(got[2], want[2])
     _rows_match_up_to_ties(got[0], got[1], want[0], want[1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DeviceIndex(centroids, codebooks, codes, pidx, device="cpu",
-                    rotation=np.eye(64, dtype=np.float32))
+    rot = np.linalg.qr(rng.standard_normal((64, 64)))[0].astype(np.float32)
+    for layout in ("masked", "bucketed"):
+        for metric in ("l2", "dot"):
+            mine = DeviceIndex(centroids, codebooks, codes, pidx,
+                               layout=layout, rotation=rot, metric=metric,
+                               device="cpu")
+            ref = JaxIndex(centroids, codebooks, codes, pidx, layout=layout,
+                           rotation=rot, metric=metric)
+            got, want = mine.query(q, 10, 2), ref.query(q, 10, 2)
+            np.testing.assert_array_equal(got[2], want[2])
+            _rows_match_up_to_ties(got[0], got[1], want[0], want[1])
 
 
 # --- full-f32 ranking products, whatever TF32 setting the process chose ----

@@ -255,18 +255,31 @@ def test_raises_the_same_invalid_args():
 
 
 def test_unported_options_raise_and_name_their_item(tmp_path):
+    """The f64 build still names its item (14); fast math and OPQ (items
+    12 and 13) now build, refuse what the JAX package refuses, and a JAX
+    OPQ database carried across answers as the JAX package does."""
     x = np.random.default_rng(3).standard_normal((64, 8)).astype(np.float32)
     b = ft.DatabaseBuilder(x, device="cpu")
-    db = _builder(ft, x, 4, 2, 4, 0, device="cpu").build()
-    cases = [(lambda: b.with_opq(), 13), (lambda: b.with_fast_math(), 12),
-             (lambda: ft.DatabaseBuilder(x, np.float64), 14)]
-    for fn, item in cases:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            fn()
-    b.with_fast_math(False)                     # the default is accepted
+    with pytest.raises(NotImplementedError, match=r"item 14\b"):
+        ft.DatabaseBuilder(x, np.float64)
+    assert b.with_fast_math() is b and b.with_fast_math(False) is b
+    for iters in (0, -1):
+        with pytest.raises(errors.InvalidArgs) as got:
+            b.with_opq(iters)
+        with pytest.raises(jerrors.InvalidArgs) as want:
+            fdb.DatabaseBuilder(x).with_opq(iters)
+        assert str(got.value) == str(want.value)
+    db = _builder(ft, x, 4, 2, 4, 0, device="cpu").with_opq(2) \
+        .with_fast_math().build()
+    np.testing.assert_allclose(db.rotation @ db.rotation.T, np.eye(8),
+                               atol=1e-5)
+    assert len(db.query(x[0], k=3, nprobe=4)) == 3
     jdb = _builder(fdb, x, 4, 2, 4, 0).with_opq(2).build()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ft.from_jax_arrays(jdb, device="cpu")
+    mine = ft.from_jax_arrays(jdb, device="cpu")
+    np.testing.assert_array_equal(mine.rotation, jdb.rotation)
+    for v in x[:4]:
+        _same_results(mine.query(v, k=5, nprobe=2),
+                      jdb.query(v, k=5, nprobe=2))
 
 
 def test_port_built_database_saves_and_loads_with_jax(tmp_path):
