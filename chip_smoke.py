@@ -21,7 +21,9 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    at G=640, D=8, C=256, L=1280 unpacked; K-B
    (fused Lloyd round) at the coarse fit (B=1, N=100k, K=100, M=1536), the
    PQ fit (B=12, N=100k, K=256, m=128), K=1024, the SIFT coarse fit (B=1,
-   N=1M, K=1024, M=128) and duplicated centroids for the tie order; K-C
+   N=1M, K=1024, M=128), the CLI's ``generate`` fits (coarse B=1, N=5000,
+   K=10, M=1024; PQ B=8, N=5000, K=25, m=128) and duplicated centroids
+   for the tie order; K-C
    (grouped Lloyd round) at the SIFT PQ shape (B=8, N=1M, K=256, m=16),
    GIST's division count with pad slots (B=60, N=100k, m=16), m=8, m=32
    and duplicated centroids, each also held to K-B's assignment on the
@@ -29,7 +31,7 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    the same order, so the rows that differ are expected to be 0; the
    check allows near-ties). The fast_math variants of K-B and K-C (one
    bf16 tensor-core pass) against their plain fast versions: K-B fast at
-   K-B's four shapes and with duplicated centroids, K-C fast at the SIFT
+   K-B's first four shapes and with duplicated centroids, K-C fast at the SIFT
    PQ shape, m=8, m=32, m=64 (K=300) and duplicated centroids; ties
    measured on the bf16-rounded operands, sums against sums of the
    bf16-rounded x, which the sums of the f32 x must miss. The kernels'
@@ -37,7 +39,7 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C. K-A is only checked here and timed in
-   phase 7.
+   phase 8.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -128,12 +130,42 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    synchronized at the events), the OPQ fit's parts (PQ fits, rotations,
    reconstructions, Gram, host SVD) and the phase's launches are printed;
    each fast kernel, K-B, K-C and K-A must have launched.
-7. K-A's times, after the paths, so that ``torch.profiler`` has not run
+7. The async tier, the flat tier and the CLI, on the trees that phases 5
+   and 6 saved. Async: 8 cold queries at nprobe=10 on the SIFT tree
+   through ``asyncdb.AsyncLocalFileSystem``, then again warm, every row
+   and distance bit-equal to the sync tier's cold queries on the same tree
+   and equal to phase 3's bucketed K-A results up to ties (the partition
+   files open at once are counted); 8 cold ``query(where=)`` on the
+   headline tree with phase 4's attributes, bit-equal to the sync tier's,
+   with ``tenant`` and ``lang`` read back through ``get_attribute``;
+   ``asyncdb.save_database`` of phase 2's database: the sync save's root
+   and every file byte-equal; 8 cold queries on the SIFT-OPQ tree (the
+   rotation read), bit-equal to the sync tier's. Flat:
+   ``FlatDatabase(x, device="cuda")`` over the SIFT corpus (1M x 128, 512
+   MB) and the headline corpus (100,000 x 1536, 614 MB), each with 1,000
+   queries at k=10 (phase 3's; the headline's those of phase 6), equal to
+   the exact ground truth up to ties and, for 64 queries, to the CPU plain
+   path; ``exact_topk``'s device time (CUDA events) beside its bound (the
+   corpus read once, 2·B·N·M fp32 operations); a filtered batch and 8
+   ``query_range`` calls at the headline against the CPU path; the SIFT
+   corpus saved (``save_flat_database``), loaded onto the card, preloaded
+   and queried, bit-equal to the in-memory batch, and through
+   ``load_flat_database_async``. The async and flat parts must launch no
+   kernel (the async tier scans on the host, the flat tier ranks on
+   cuBLAS). CLI: ``main(["generate", db], device="cuda")`` in this
+   process, its launch counts zeroed just before it and read just after
+   (K-B must have built and K-A queried); K-A then held against its plain
+   version at the saved tree's buckets (preloaded) and one query's
+   tables; ``verify`` and ``gc --dry-run`` through ``main`` too, and
+   ``python -m flechasdb_tpu_torch load`` in a subprocess (the module
+   entry), each exiting 0 with its expected lines.
+8. K-A's times, after the paths, so that ``torch.profiler`` has not run
    in the process while they were timed: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
-   SIFT-OPQ buckets with their rotated tables). K-A's calls
+   SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's).
+   K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
    launch, each call after a read of 256 MiB that evicts its inputs from
@@ -143,10 +175,10 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    plain version's is a CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phases 4, 5 and 6) and read just after; every kernel a path
+queries, phases 4, 5, 6 and 7) and read just after; every kernel a path
 runs must have run. The line before the last is the kernels' JSON record:
 a row per TPU kernel of the JAX package, with its counterpart's launches
-over the five paths, its time (``ms_by`` names the method; K-A's rows
+over the paths (phases 2 to 7), its time (``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``), its plain version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
@@ -187,6 +219,8 @@ L2_FLUSH_BYTES = 256 << 20                # over the H100's 50 MB of L2
 TF32_FLOPS = 494.7e12                     # H100 SXM dense TF32
 BF16_FLOPS = 989.4e12                     # H100 SXM dense bf16
 OPQ_ITERS = 6                    # benchmarks/sweep.py's sift-opq config
+CLI_N, CLI_M, CLI_P, CLI_D, CLI_C = 5000, 1024, 10, 8, 25  # __main__.py's
+CLI_NPROBE = 3
 N_RECALL = 1000                  # headline queries for recall
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
@@ -278,7 +312,7 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
 
 def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
     """K-A's ``call`` against its ``plain`` version (raises where they
-    disagree): the case phase 7 times."""
+    disagree): the case phase 8 times."""
     got, want = call(), plain()
     torch.cuda.synchronize()
     err = scan_error(torch, got, want)
@@ -1388,17 +1422,16 @@ def stored_golden(ft) -> None:
         "queries give the recorded results")
 
 
-def stored_run(torch, head: dict, sift: dict):
-    """Phase 5: the launch counts are zeroed before it and read after."""
+def stored_run(torch, head: dict, sift: dict, work: Path):
+    """Phase 5: the launch counts are zeroed before it and read after. Its
+    trees stay in ``work`` for phase 7."""
     import flechasdb_tpu_torch as ft
     from flechasdb_tpu_torch import _kernels
     _kernels.reset_launches()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        work = Path(tmp)
-        sdb = stored_headline(ft, head, work)
-        stored_launches = _kernels.LAUNCHES["adc_scan"]
-        stored_sift(ft, sift, work)
+    sdb = stored_headline(ft, head, work)
+    stored_launches = _kernels.LAUNCHES["adc_scan"]
+    stored_sift(ft, sift, work)
     stored_golden(ft)
     launches = dict(_kernels.LAUNCHES)
     log(f"launches over phase 5: {launches}")
@@ -1651,9 +1684,10 @@ def opq_against_pq(torch, db, base, seed: int) -> None:
             "on the same residuals")
 
 
-def fast_opq_run(torch, seed: int, head: dict, sift: dict):
+def fast_opq_run(torch, seed: int, head: dict, sift: dict, work: Path):
     """Phase 6: one round's agreement first, then the launch counts are
-    zeroed before the three builds and their queries and read after."""
+    zeroed before the three builds and their queries and read after. The
+    SIFT-OPQ tree stays in ``work`` for phase 7."""
     import flechasdb_tpu_torch as ft
     from flechasdb_tpu_torch import _kernels
     agree = agreement(torch, head)
@@ -1665,8 +1699,7 @@ def fast_opq_run(torch, seed: int, head: dict, sift: dict):
     torch.cuda.synchronize()
     fast_headline(torch, ft, head, seed)
     fast_sift(torch, ft, sift, seed)
-    with tempfile.TemporaryDirectory() as tmp:
-        index, opq_db = sift_opq(torch, ft, sift, seed, Path(tmp))
+    index, opq_db = sift_opq(torch, ft, sift, seed, work)
     launches = dict(_kernels.LAUNCHES)
     log(f"launches over phase 6: {launches}")
     for name in ("lloyd_round_fast", "lloyd_grouped_fast", "lloyd_round",
@@ -1675,6 +1708,373 @@ def fast_opq_run(torch, seed: int, head: dict, sift: dict):
     opq_against_pq(torch, opq_db, sift["db"], seed)
     return launches, scan_at_main_path(torch, index, sift["q"], SIFT_NPROBE,
                                        "the SIFT-OPQ path's rotated")
+
+
+# --- phase 7: the async tier, the flat tier and the CLI ---------------------
+
+def root_of(base: Path) -> str:
+    """The one root manifest's hash at the top of a saved tree."""
+    roots = [p.stem for p in base.glob("*.binpb")]
+    require(len(roots) == 1, f"{base.name}: {len(roots)} root manifests")
+    return roots[0]
+
+
+def fields(results) -> list:
+    return [(r.vector_id, r.partition_index, r.vector_index,
+             r.squared_distance) for r in results]
+
+
+def async_queries(fs, root: str, qs, nprobe: int, where=None,
+                  attrs=()) -> tuple:
+    """Loads ``root`` through the async tier and runs ``qs`` one by one,
+    cold and then again warm: ``(cold results, cold ms, warm results,
+    warm ms, attribute values of the cold results)``."""
+    import asyncio
+    from flechasdb_tpu_torch import asyncdb
+
+    async def run():
+        adb = await asyncdb.load_database(fs, f"{root}.binpb")
+        out = []
+        for _ in range(2):
+            res, ms = [], []
+            for v in qs:
+                t0 = time.perf_counter()
+                res.append(await adb.query(v, K_TOP, nprobe, where=where))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out += [res, ms]
+        values = [[await asyncio.gather(*(r.get_attribute(a) for r in rs))
+                   for a in attrs] for rs in out[0]]
+        return (*out, values)
+
+    return asyncio.run(run())
+
+
+def counting_store(base: Path):
+    """An ``AsyncLocalFileSystem`` that counts the partition files open at
+    once (their reads run off the event loop, so cold loads overlap)."""
+    from flechasdb_tpu_torch.asyncdb import AsyncLocalFileSystem
+
+    class Counting(AsyncLocalFileSystem):
+        in_flight = peak = 0
+
+        async def open_hashed_file(self, path, compressed=False):
+            if not (compressed and path.startswith("partitions/")):
+                return await super().open_hashed_file(path, compressed)
+            self.in_flight += 1
+            self.peak = max(self.peak, self.in_flight)
+            try:
+                return await super().open_hashed_file(path, compressed)
+            finally:
+                self.in_flight -= 1
+
+    return Counting(base)
+
+
+def async_tier(ft, head: dict, sift: dict, work: Path) -> None:
+    """The async tier on phase 5's and phase 6's trees, against the sync
+    cold tier on the same trees (bit for bit) and phase 3's K-A results;
+    the async save of phase 2's database against phase 5's tree."""
+    import asyncio
+    from flechasdb_tpu_torch import asyncdb
+    q = sift["q"][:N_SINGLE]
+    root = root_of(work / "sift")
+    fs = counting_store(work / "sift")
+    cold, cold_ms, warm, warm_ms, _ = async_queries(fs, root, q,
+                                                    SIFT_NPROBE)
+    sync = ft.load_database(ft.LocalFileSystem(work / "sift"),
+                            f"{root}.binpb", device="cuda")
+    for i, v in enumerate(q):
+        want = fields(sync.query(v, K_TOP, SIFT_NPROBE))
+        require(fields(cold[i]) == want and fields(warm[i]) == want,
+                f"async SIFT query[{i}] differs from the sync cold tier")
+    row_of = {vid: i for i, vid in enumerate(sift["db"].vector_ids)}
+    adc = sift["adc"]
+    swapped = same_arrays(host_arrays(cold, row_of, K_TOP),
+                          (adc[0][:N_SINGLE], adc[1][:N_SINGLE]),
+                          "async SIFT vs K-A")
+    log(f"async SIFT tree: {N_SINGLE} cold queries at nprobe={SIFT_NPROBE} "
+        f"{', '.join(f'{v:.3f}' for v in cold_ms)} ms, warm "
+        f"{', '.join(f'{v:.3f}' for v in warm_ms)} ms; at most {fs.peak} "
+        "partition files open at once; every row and distance bit-equal "
+        "to the sync cold tier, equal to phase 3's bucketed K-A results "
+        f"({swapped} tie swaps)")
+
+    root = root_of(work / "headline")
+    name, where, mask = headline_filters(ft, head["tenant"], head["lang"])[1]
+    row_of = {vid: i for i, vid in enumerate(head["db"].vector_ids)}
+    qs = head["q_single"]
+    cold, cold_ms, _, warm_ms, values = async_queries(
+        asyncdb.AsyncLocalFileSystem(work / "headline"), root, qs, NPROBE,
+        where=where, attrs=("tenant", "lang"))
+    sync = ft.load_database(ft.LocalFileSystem(work / "headline"),
+                            f"{root}.binpb", device="cuda")
+    for i, v in enumerate(qs):
+        want = sync.query(v, K_TOP, NPROBE, where=where)
+        require(fields(cold[i]) == fields(want),
+                f"async headline {name} [{i}] differs from the sync tier")
+        require(values[i] == [[r.get_attribute(a) for r in want]
+                              for a in ("tenant", "lang")],
+                f"async headline [{i}]: attributes differ")
+        require(all(mask[row_of[r.vector_id]] for r in cold[i]),
+                f"async headline {name} [{i}]: a row fails the filter")
+    log(f"async headline tree, where={name}: {N_SINGLE} cold queries "
+        f"{', '.join(f'{v:.3f}' for v in cold_ms)} ms, warm median "
+        f"{statistics.median(warm_ms):.3f} ms; {sum(map(len, cold))} rows, "
+        "bit-equal to the sync cold tier, tenant and lang equal")
+
+    fs = ft.LocalFileSystem(work / "headline-async")
+    got, save_ms = timed(lambda: asyncio.run(asyncdb.save_database(
+        head["db"], fs)))
+    require(got == root, f"the async save's root {got} != {root}")
+    require(tree_files(work / "headline-async")
+            == tree_files(work / "headline"),
+            "the async save's tree differs from the sync save's")
+    log(f"async save_database of phase 2's database: {save_ms:.3f} ms, the "
+        "sync save's root and every file byte-equal")
+
+    root = root_of(work / "sift-opq")
+    cold, cold_ms, _, _, _ = async_queries(
+        asyncdb.AsyncLocalFileSystem(work / "sift-opq"), root, q,
+        SIFT_NPROBE)
+    sync = ft.load_database(ft.LocalFileSystem(work / "sift-opq"),
+                            f"{root}.binpb", device="cuda")
+    for i, v in enumerate(q):
+        require(fields(cold[i]) == fields(sync.query(v, K_TOP, SIFT_NPROBE)),
+                f"async SIFT-OPQ query[{i}] differs from the sync tier")
+    log(f"async SIFT-OPQ tree (rotation read): {N_SINGLE} cold queries "
+        f"{', '.join(f'{v:.3f}' for v in cold_ms)} ms, bit-equal to the "
+        "sync cold tier")
+
+
+def exact_bound(b: int, n: int, m: int) -> tuple[float, str]:
+    """The exact scan's least time: ``[B, M]`` and ``[N, M]`` f32 read once,
+    ``2·B·N·M`` f32 operations outside the tensor cores (the scan ranks in
+    full f32)."""
+    return bound(4 * (b * m + n * m), 2 * b * n * m)
+
+
+def flat_rows(results) -> np.ndarray:
+    return np.array([[r.vector_index for r in rs] for rs in results])
+
+
+def flat_against_truth(rows: np.ndarray, gt: np.ndarray, x, q,
+                       what: str) -> int:
+    """The flat rows equal the exact ground truth up to ties: where a row
+    differs, the two rows' exact distances (float64) agree within the
+    tolerance. Returns the number of such rows."""
+    swapped = 0
+    for b in np.flatnonzero((rows != gt).any(axis=1)):
+        def exact(r):
+            return ((x[r].astype(np.float64) - q[b]) ** 2).sum(axis=1)
+        require(np.allclose(exact(rows[b]), exact(gt[b]), rtol=RTOL,
+                            atol=ATOL), f"{what}[{b}]: rows differ from the "
+                "ground truth outside a tie")
+        swapped += int((rows[b] != gt[b]).sum())
+    return swapped
+
+
+def flat_hits(results):
+    return (np.array([r.vector_index for r in results], np.int64),
+            np.array([r.squared_distance for r in results], np.float32))
+
+
+def flat_corpus(torch, ft, x, q, gt, ids, what: str):
+    """``FlatDatabase(x, device="cuda")``: upload, the batch's host and
+    device times against the exact scan's bound, the ground truth and the
+    CPU plain path (``N_CHECK`` queries). Returns ``(database, results,
+    CPU database)``."""
+    from flechasdb_tpu_torch.ops.exact import exact_topk
+    db = ft.FlatDatabase(x, vector_ids=ids, device="cuda")
+    torch.cuda.synchronize()
+    _, up_ms = timed(lambda: (db.preload(), torch.cuda.synchronize()))
+    _, first_ms = timed(lambda: db.query_batch(q, K_TOP))
+    ms = []
+    for _ in range(3):
+        res, t = timed(lambda: db.query_batch(q, K_TOP))
+        ms.append(t)
+    qd = torch.as_tensor(q, device="cuda")
+    scan_ms = cuda_ms(torch, lambda: exact_topk(qd, db._dev, k=K_TOP), 3)
+    bms, by = exact_bound(len(q), len(x), x.shape[1])
+    swapped = flat_against_truth(flat_rows(res), gt, x, q, what)
+    cpu = ft.FlatDatabase(x, vector_ids=ids, device="cpu")
+    want = cpu.query_batch(q[:N_CHECK], K_TOP)
+    for b in range(N_CHECK):
+        swapped += same_results(res[b], want[b], f"{what} vs CPU [{b}]")
+    log(f"flat {what} ({len(x)} x {x.shape[1]}, "
+        f"{x.nbytes / 2**20:.0f} MiB on the card): upload {up_ms:.3f} ms; "
+        f"query_batch({len(q)}, k={K_TOP}) first {first_ms:.3f} ms, warm "
+        f"{statistics.median(ms):.3f} ms (median of 3); exact_topk device "
+        f"time {scan_ms:.3f} ms (CUDA events), bound {bms:.3f} ms ({by}); "
+        f"equal to the exact ground truth and, for {N_CHECK} queries, to "
+        f"the CPU plain path ({swapped} tie swaps)")
+    return db, res, cpu
+
+
+def flat_tier(torch, ft, head: dict, sift: dict, seed: int,
+              work: Path) -> None:
+    """The flat tier on the card at both corpora: batches against the exact
+    ground truth and the CPU path, a filter and range search at the
+    headline, the SIFT corpus saved, loaded, preloaded and queried, sync
+    and async."""
+    import asyncio
+    from flechasdb_tpu_torch.asyncdb import AsyncLocalFileSystem
+    x, q = sift["x"], sift["q"]
+    db, res, cpu = flat_corpus(torch, ft, x, q, sift["gt"],
+                               sift["db"].vector_ids, "SIFT")
+    del cpu
+
+    xh = head["x"]
+    rng = np.random.default_rng(seed + 3)          # fast_headline's queries
+    qr = xh[rng.choice(N, N_RECALL, replace=False)]
+    qr = qr + 0.02 * rng.standard_normal(qr.shape, dtype=np.float32)
+    hdb, _, hcpu = flat_corpus(torch, ft, xh, qr,
+                               ground_truth(torch, xh, qr, K_TOP),
+                               head["db"].vector_ids, "headline")
+    for d in (hdb, hcpu):
+        d.attribute_table = {vid: dict(a) for vid, a in
+                             head["db"].attribute_table.items()}
+    name, where, mask = headline_filters(ft, head["tenant"], head["lang"])[0]
+    hq = head["q"]
+    got, f_ms = timed(lambda: hdb.query_batch(hq, K_TOP, where=where))
+    want = hcpu.query_batch(hq, K_TOP, where=where)
+    swapped = 0
+    for b in range(len(hq)):
+        require(all(mask[r.vector_index] for r in got[b]),
+                f"flat {name} [{b}]: a row fails the filter")
+        swapped += same_results(got[b], want[b], f"flat {name} [{b}]")
+    edge, n_hits = 0, 0
+    for b in range(N_SINGLE):
+        keys = [r.squared_distance for r in hdb.query(hq[b], K_TOP + 1)]
+        radius = (keys[K_TOP - 1] + keys[K_TOP]) / 2
+        rgot = hdb.query_range(hq[b], radius)
+        n_hits += len(rgot)
+        edge += same_hits(flat_hits(rgot), flat_hits(hcpu.query_range(
+            hq[b], radius)), radius, f"flat query_range [{b}]")
+    log(f"flat headline query_batch({len(hq)}, where={name}) {f_ms:.3f} ms, "
+        f"equal to the CPU path ({swapped} tie swaps); query_range of "
+        f"{N_SINGLE} queries: {n_hits} hits, equal to the CPU path ({edge} "
+        "rows at the radius)")
+    del hdb, hcpu
+
+    fs = ft.LocalFileSystem(work / "flat-sift")
+    root, save_ms = timed(lambda: ft.save_flat_database(db, fs))
+    size = sum(f.stat().st_size for f in (work / "flat-sift").rglob("*"))
+    sdb, load_ms = timed(lambda: ft.load_flat_database(fs, f"{root}.binpb",
+                                                       device="cuda"))
+    _, pre_ms = timed(lambda: (sdb.preload(), torch.cuda.synchronize()))
+    require(sdb._dev[0].device.type == "cuda", "the stored corpus is not "
+            "on the card")
+    got = sdb.query_batch(q, K_TOP)
+    require([[(r.vector_id, r.squared_distance) for r in rs] for rs in got]
+            == [[(r.vector_id, r.squared_distance) for r in rs]
+                for rs in res], "the stored flat batch differs from the "
+            "in-memory one")
+
+    async def run():
+        adb = await ft.load_flat_database_async(
+            AsyncLocalFileSystem(work / "flat-sift"), f"{root}.binpb",
+            device="cuda")
+        return [await adb.query(v, K_TOP) for v in q[:N_SINGLE]]
+
+    agot, a_ms = timed(lambda: asyncio.run(run()))
+    swapped = 0
+    for i in range(N_SINGLE):
+        swapped += same_results(agot[i], sdb.query(q[i], K_TOP),
+                                f"async flat [{i}]")
+    log(f"flat SIFT stored: save_flat_database {save_ms:.3f} ms "
+        f"({len(sdb.root.chunk_ids)} chunks, {size} bytes); "
+        f"load_flat_database {load_ms:.3f} ms; preload {pre_ms:.3f} ms; "
+        f"query_batch({len(q)}) bit-equal to the in-memory database's; "
+        f"load_flat_database_async + {N_SINGLE} queries {a_ms:.3f} ms, "
+        f"the same rows ({swapped} tie swaps)")
+
+
+def cli_output(what: str, done: tuple, need: str, results: int) -> None:
+    """A CLI command's ``(exit code, output, seconds)``: it exited 0 and
+    printed ``need`` and ``results`` result lines."""
+    rc, out, s = done
+    require(rc == 0, f"CLI {what} exited {rc}:\n{out}")
+    lines = out.splitlines()
+    require(any(need in line for line in lines),
+            f"CLI {what} printed no {need!r}:\n{out}")
+    n = sum(line.startswith(f"{i}: ") for line in lines for i in range(10))
+    require(n == results, f"CLI {what} printed {n} result lines")
+    log(f"CLI {what}: exit 0 in {s:.3f} s ({len(lines)} lines, {n} "
+        "results)")
+
+
+def cli_run(torch, work: Path):
+    """The CLI: ``generate`` through ``main`` in this process, its launch
+    counts zeroed just before it and read just after (K-B builds, K-A
+    queries), then K-A against its plain version at the saved tree's
+    buckets; ``verify`` and ``gc --dry-run`` through ``main``; ``load``
+    through ``python -m flechasdb_tpu_torch`` in a subprocess. Returns
+    ``(launches, K-A case)``."""
+    import contextlib
+    import io
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.__main__ import main as cli
+    db = work / "cli"
+
+    def in_process(*argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli([*argv, str(db)], device="cuda")
+        torch.cuda.synchronize()
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    done = in_process("generate")
+    launches = dict(_kernels.LAUNCHES)
+    cli_output("generate", done, "saved database", K_TOP)
+    log(f"launches over the CLI's generate: {launches}")
+    for name in ("lloyd_round", "adc_scan"):
+        require(launches[name] > 0, f"the CLI's generate launched no {name}")
+    sdb = ft.load_database(ft.LocalFileSystem(db), f"{root_of(db)}.binpb",
+                           device="cuda")
+    sdb.preload()
+    qv = np.random.default_rng(CLI_N).random((1, CLI_M), dtype=np.float32)
+    qv /= np.linalg.norm(qv)
+    case = scan_at_main_path(torch, sdb._dev[0], qv, CLI_NPROBE,
+                             "the CLI's")
+    cli_output("verify", in_process("verify"), "all artifacts verified", 0)
+    cli_output("gc --dry-run", in_process("gc", "--dry-run"), "0 orphaned",
+               0)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "flechasdb_tpu_torch", "load", str(db)],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    cli_output("python -m flechasdb_tpu_torch load",
+               (out.returncode, out.stdout + out.stderr,
+                time.perf_counter() - t0), "[1] listed results", 2 * K_TOP)
+    return launches, case
+
+
+def tiers_run(torch, seed: int, head: dict, sift: dict, work: Path):
+    """Phase 7: the launch counts are zeroed before it; the async and flat
+    tiers must launch none (host scan, cuBLAS). Returns the CLI's
+    ``(launches, K-A case)``."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    async_tier(ft, head, sift, work)
+    t1 = time.perf_counter()
+    flat_tier(torch, ft, head, sift, seed, work)
+    torch.cuda.synchronize()
+    tiers = dict(_kernels.LAUNCHES)
+    require(not any(tiers.values()), f"the async and flat tiers launched "
+            f"kernels: {tiers}")
+    t2 = time.perf_counter()
+    out = cli_run(torch, work)
+    log(f"phase 7 parts: async {t1 - t0:.3f} s, flat {t2 - t1:.3f} s, CLI "
+        f"{time.perf_counter() - t2:.3f} s")
+    return out
 
 
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
@@ -1715,7 +2115,11 @@ def main() -> None:
                parity_lloyd(torch, gen, 1, 65_536, 1024, 128),
                parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M),
                parity_lloyd(torch, gen, D, N, C, M // D, dup=True,
-                            time_it=False)]
+                            time_it=False),
+               parity_lloyd(torch, gen, 1, CLI_N, CLI_P, CLI_M,
+                            time_it=False),
+               parity_lloyd(torch, gen, CLI_D, CLI_N, CLI_C,
+                            CLI_M // CLI_D, time_it=False)]
     c_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True),
                parity_lloyd(torch, gen, 60, N, C, 16, grouped=True,
                             time_it=False),
@@ -1754,24 +2158,32 @@ def main() -> None:
     upd_launches, a_upd = updates_run(torch, args.seed, head, sift)
     log(f"phase 4 (filters, range search, updates): "
         f"{time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    stored_launches, a_stored = stored_run(torch, head, sift)
-    log(f"phase 5 (the stored tier): {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    fo_launches, a_opq = fast_opq_run(torch, args.seed, head, sift)
-    log(f"phase 6 (fast-math training and OPQ): "
-        f"{time.perf_counter() - t0:.3f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        stored_launches, a_stored = stored_run(torch, head, sift, work)
+        log(f"phase 5 (the stored tier): {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        fo_launches, a_opq = fast_opq_run(torch, args.seed, head, sift, work)
+        log(f"phase 6 (fast-math training and OPQ): "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        cli_launches, a_cli = tiers_run(torch, args.seed, head, sift,
+                                        work)
+        log(f"phase 7 (the async tier, the flat tier, the CLI): "
+            f"{time.perf_counter() - t0:.3f} s")
     del head, sift
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq]
+    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 7 (K-A times): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 8 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
-                + stored_launches[k] + fo_launches[k] for k in slice_launches}
+                + stored_launches[k] + fo_launches[k] + cli_launches[k]
+                for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),

@@ -2,11 +2,15 @@
 
 The port of the JAX package's build → query paths to PyTorch (the
 bucketed and masked layouts, exact rerank, attribute filters, range search
-and updates of the in-memory database, fast-math training and OPQ) and of
-its synchronous stored tier
+and updates of the in-memory database, fast-math training and OPQ), of
+its stored tiers
 (``save_database`` writes the JAX package's content-addressed tree, byte
 for byte; ``load_database`` reads it lazily, queries cold on the host and,
-after ``StoredDatabase.preload``, serves from the device), with
+after ``StoredDatabase.preload``, serves from the device; :mod:`.asyncdb`
+loads, queries and saves the same trees from asyncio; the fsspec object
+store, whose ``fsspec`` is imported at first use, never with the package),
+of the flat (exact-search) tier (:mod:`.flat`, the exact scan on the
+device) and of the CLI (``python -m flechasdb_tpu_torch``), with
 hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
 
 * K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``), also
@@ -25,8 +29,9 @@ JAX package (whose ``__init__`` imports jax): it carries copies of the
 jax-free host code it needs (:mod:`.errors`, :mod:`.events`,
 :mod:`.host`, :mod:`.attributes`, :mod:`.filters`, and the storage layer:
 :mod:`.io`, :mod:`.protos`, :mod:`._native` with ``native/fastio.cc``,
-:mod:`.serialize`, :mod:`.stored`, :mod:`.memfs`, :mod:`.catalog`), with
-the same names and messages.
+:mod:`.serialize`, :mod:`.stored`, :mod:`.memfs`, :mod:`.catalog`,
+:mod:`.asyncdb`, :mod:`.objectstore`, :mod:`.utils`), with the same names
+and messages.
 """
 
 from .errors import (
@@ -44,13 +49,22 @@ from .build import Database, DatabaseBuilder, QueryResult
 from .catalog import load_labeled, publish_label, resolve_label
 from .convert import from_jax_arrays, to_arrays
 from .filters import Eq, Exists, Filter, In, Range
+from .flat import (
+    FlatDatabase,
+    StoredFlatDatabase,
+    load_flat_database,
+    load_flat_database_async,
+    save_flat_database,
+)
 from .host import VALID_METRICS
 from .io import FileSystem, LocalFileSystem
 from .memfs import MemoryFileSystem
+from .objectstore import AsyncFsspecFileSystem, FsspecFileSystem
 from .serialize import save_database
 from .stored import StoredDatabase, StoredQueryResult, load_database
 
 __all__ = [
+    "AsyncFsspecFileSystem",
     "AttributeTable",
     "Attributes",
     "AttributeValue",
@@ -60,7 +74,9 @@ __all__ = [
     "Exists",
     "FileSystem",
     "Filter",
+    "FlatDatabase",
     "FlechasError",
+    "FsspecFileSystem",
     "InvalidArgs",
     "InvalidContext",
     "InvalidData",
@@ -72,14 +88,18 @@ __all__ = [
     "QueryResult",
     "Range",
     "StoredDatabase",
+    "StoredFlatDatabase",
     "StoredQueryResult",
     "VALID_METRICS",
     "VerificationFailure",
     "from_jax_arrays",
     "load_database",
+    "load_flat_database",
+    "load_flat_database_async",
     "load_labeled",
     "publish_label",
     "resolve_label",
     "save_database",
+    "save_flat_database",
     "to_arrays",
 ]

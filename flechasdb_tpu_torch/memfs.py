@@ -7,14 +7,16 @@ for ephemeral databases and tests; a real object-store backend (GCS/S3)
 only has to swap the dict for client calls, exactly like the reference's
 S3 crate swaps local files.
 
-A copy of the JAX package's ``MemoryFileSystem`` (for the reason given in
-:mod:`.errors`); its asyncio view comes with the port's async tier.
+A copy of the JAX package's ``memfs.py`` (for the reason given in
+:mod:`.errors`): ``MemoryFileSystem`` and its asyncio view
+``AsyncMemoryFileSystem``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+from .asyncdb.io import AsyncFileSystem, AsyncHashedFileReader
 from .errors import IOError_
 from .io import FileSystem, HashedFileReader, HashedFileWriter
 
@@ -53,3 +55,21 @@ class MemoryFileSystem(FileSystem):
 
     def exists(self, path: str) -> bool:
         return path in self.objects
+
+
+class AsyncMemoryFileSystem(AsyncFileSystem):
+    """Asyncio view over the same dict (read-only, like the reference's
+    async path)."""
+
+    def __init__(self, objects: Dict[str, bytes]) -> None:
+        self.objects = objects
+
+    async def open_hashed_file(self, path: str,
+                               compressed: bool = False,
+                               ) -> AsyncHashedFileReader:
+        try:
+            raw = self.objects[path]
+        except KeyError:
+            raise IOError_(f"no such object: {path}") from None
+        return AsyncHashedFileReader(raw, path.rsplit("/", 1)[-1],
+                                     compressed)

@@ -304,6 +304,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['fsspec'] = None\n"
         "import numpy as np\n"
         "import flechasdb_tpu_torch as ft\n"
         "x = np.random.default_rng(0).standard_normal((200, 16))"
@@ -326,6 +327,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " == root\n"
         "from flechasdb_tpu_torch import _native\n"
         "assert _native.available()\n"
+        "import asyncio\n"
+        "import flechasdb_tpu_torch.__main__\n"
+        "from flechasdb_tpu_torch import asyncdb, flat, objectstore, memfs\n"
+        "async def go():\n"
+        "    adb = await asyncdb.load_database(\n"
+        "        memfs.AsyncMemoryFileSystem(fs.objects), root + '.binpb')\n"
+        "    return await adb.query(x[0], 3, 2)\n"
+        "got = asyncio.run(go())\n"
+        "assert [r.vector_id for r in got] == [r.vector_id for r in cold]\n"
+        "fdb = flat.FlatDatabase(x, seed=1, device='cpu')\n"
+        "assert fdb.query(x[5], k=1)[0].vector_index == 5\n"
+        "assert objectstore.FsspecFileSystem is ft.FsspecFileSystem\n"
         "assert not [m for m in sys.modules if m == 'flechasdb_tpu'"
         " or m.startswith('flechasdb_tpu.')], 'JAX package imported'\n"
         "print('ok')\n")
