@@ -34,12 +34,22 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    K-B's first four shapes and with duplicated centroids, K-C fast at the SIFT
    PQ shape, m=8, m=32, m=64 (K=300) and duplicated centroids; ties
    measured on the bf16-rounded operands, sums against sums of the
-   bf16-rounded x, which the sums of the f32 x must miss. The kernels'
+   bf16-rounded x, which the sums of the f32 x must miss. Each Lloyd
+   round is K-B's or K-C's assignment followed by the cluster-sum pass
+   (``csrc/cluster_sums.cu``), which adds every sum in an order fixed by
+   the assignment: each kernel is called twice on the same inputs and
+   must return the same indices, sums and counts bit for bit; the counts
+   must equal ``bincount``'s, and the sums must lie within SUM_RTOL /
+   SUM_ATOL of the f64 sums and of the plain f32 ``index_add_``, except in
+   one skewed K-B case at the SIFT coarse shape (over half the rows next
+   to one centroid), whose serial f32 ``index_add_`` drifts past the
+   tolerance by itself (both errors are printed). The kernels'
    ``ptxas`` registers and spills are printed for each K-C instance.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
-   ungrouped data beside K-C. K-A is only checked here and timed in
-   phase 8.
+   ungrouped data beside K-C; at each timed shape the cluster-sum pass
+   is also timed alone, with its plain version and ``index_add_``. K-A is
+   only checked here and timed in phase 9.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -116,7 +126,9 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    m=16): recall@10 at nprobe=10 within 0.02 of phase 3's, coarse@10 at
    least 0.95; and the JAX package's ``sift-opq`` configuration
    (``benchmarks/sweep.py:79-130``): phase 3's data, ``with_opq(6)``, full
-   precision (K-B coarse, K-C in every inner PQ fit), whose rotation must
+   precision (K-B coarse, K-C in every inner PQ fit), whose coarse fit
+   (partition centroids and indices) and vector ids must equal phase 3's
+   bit for bit (the same data and seed), whose rotation must
    be orthogonal within 1e-4, whose quantization error must not exceed
    that of phase 3's PQ configuration fitted on the same residuals (after
    the phase's launch counts are read), and whose 1,000 queries through
@@ -159,12 +171,24 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    tables; ``verify`` and ``gc --dry-run`` through ``main`` too, and
    ``python -m flechasdb_tpu_torch load`` in a subprocess (the module
    entry), each exiting 0 with its expected lines.
-8. K-A's times, after the paths, so that ``torch.profiler`` has not run
+8. The f64 build: ``DatabaseBuilder(x, np.float64, device="cuda")`` over
+   the first F64_N rows of phase 3's data cast to f64 (P=100, D=8,
+   C=256; cut from 100,000 rows so that the host oracle keeps the phase
+   within a minute), trained on the host by the numpy oracle (no
+   kernel), then phase 3's 1,000 queries at k=10, nprobe=10 through
+   ``Database.query_batch`` on the card (the policy's layout: masked for
+   this skewed corpus) and through ``DeviceIndex(layout="bucketed")``
+   (K-A, which must launch), both equal to the same database served on
+   the CPU up to ties; 64 corpus rows must find themselves first
+   (``rerank=100``); the build time and recall@10 against exact ground
+   truth are printed.
+9. K-A's times, after the paths, so that ``torch.profiler`` has not run
    in the process while they were timed: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
-   SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's).
+   SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's,
+   phase 8's the f64 build's).
    K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
@@ -175,10 +199,14 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    plain version's is a CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phases 4, 5, 6 and 7) and read just after; every kernel a path
-runs must have run. The line before the last is the kernels' JSON record:
-a row per TPU kernel of the JAX package, with its counterpart's launches
-over the paths (phases 2 to 7), its time (``ms_by`` names the method; K-A's rows
+queries, phases 4, 5, 6, 7 and 8) and read just after; every kernel a
+path runs must have run, and every Lloyd round must have been followed
+by one cluster-sum pass. The line before the last is the kernels' JSON
+record: a row per TPU kernel of the JAX package, and one for the
+cluster-sum pass (the sum halves of the two Lloyd kernels; its
+``library_ms`` is ``index_add_`` of the same sums), with its
+counterpart's launches over the paths (phases 2 to 8), its time
+(``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``), its plain version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
@@ -212,7 +240,7 @@ SIFT_N, SIFT_NQ, SIFT_M, SIFT_P, SIFT_D = 1_000_000, 1000, 128, 1024, 8
 SIFT_NPROBE, RERANK, N_CHECK = 10, 100, 64
 N_ADD, LANGS = 10_000, ("en", "es", "ja", "pt")
 RTOL, ATOL = 1e-4, 1e-5          # the query path's parity tolerance
-SUM_RTOL, SUM_ATOL = 1e-4, 1e-3  # Lloyd sums: f32 atomics in any order
+SUM_RTOL, SUM_ATOL = 1e-4, 1e-3  # Lloyd sums: f32, in another fixed order
 TIE_REL = 1e-5                   # Lloyd picks may differ only this close
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12   # H100 SXM published peaks
 L2_FLUSH_BYTES = 256 << 20                # over the H100's 50 MB of L2
@@ -222,10 +250,14 @@ OPQ_ITERS = 6                    # benchmarks/sweep.py's sift-opq config
 CLI_N, CLI_M, CLI_P, CLI_D, CLI_C = 5000, 1024, 10, 8, 25  # __main__.py's
 CLI_NPROBE = 3
 N_RECALL = 1000                  # headline queries for recall
+# The f64 build: phase 3's first rows, cut from 100,000 so that the host
+# oracle (numpy, up to 100 rounds a fit) keeps phase 8 within a minute.
+F64_N, F64_P = 20_000, 100
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
 SRC_C = "flechasdb_tpu_torch/csrc/lloyd_grouped.cu"
+SRC_S = "flechasdb_tpu_torch/csrc/cluster_sums.cu"
 REPLACES = {
     "indexed": "flechasdb_tpu/ops/pallas_scan.py:528",
     "pipe": "flechasdb_tpu/ops/pallas_scan.py:320",
@@ -235,6 +267,9 @@ REPLACES = {
     # The fast_math=True branches of the same two kernels.
     "round_fast": "flechasdb_tpu/ops/pallas_kmeans.py:93",
     "grouped_fast": "flechasdb_tpu/ops/pallas_kmeans.py:189",
+    # The sum halves of _round_kernel (:121-140) and of
+    # _grouped_round_kernel (:208-224).
+    "sums": "flechasdb_tpu/ops/pallas_kmeans.py:121,208",
 }
 
 
@@ -500,21 +535,32 @@ def scan_error(torch, got, want) -> float:
 
 
 def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
-                 grouped=False, fast=False):
+                 grouped=False, fast=False, skew=False):
     """K-B (or, ``grouped``, K-C on the regrouped data) against its plain
     version; K-C also against K-B's assignment. Picks may differ only
     where two centroids are within TIE_REL of a tie. ``fast``: the
     fast_math variants against the plain fast versions, ties measured on
     the bf16-rounded operands, the sums against sums of the bf16-rounded
-    x (which sums of the f32 x must miss)."""
+    x (which sums of the f32 x must miss). A second call on the same
+    inputs must return the same indices, sums and counts bit for bit.
+    The sums must lie within the tolerance of the f64 sums and, except
+    under ``skew``, of the plain f32 ``index_add_`` too: ``skew`` puts
+    over half the rows next to centroid 0, and a serial f32 sum over them
+    drifts beyond the tolerance by itself (its error is printed).
+    ``time_it`` also times the cluster-sum pass alone and ``index_add_``,
+    the one PyTorch call that forms the same sums."""
     from flechasdb_tpu_torch.ops import lloyd
     dev = "cuda"
     name = ("K-C lloyd_grouped" if grouped else "K-B lloyd_round") \
-        + (" fast" if fast else "")
+        + (" fast" if fast else "") + (" skewed" if skew else "")
     x = torch.randn((b, n, m), generator=gen, device=dev)
     x /= x.norm(dim=(0, 2), keepdim=True)        # unit rows across B·m
     pick = torch.randint(0, n, (k,), generator=gen, device=dev)
     c = x[:, pick].contiguous()
+    if skew:
+        crowd = n // 2 + n // 8
+        x[:, :crowd] = c[:, :1] + 1e-3 * torch.randn(
+            (b, crowd, m), generator=gen, device=dev)
     if dup:
         c[:, 7] = c[:, 3]
         c[:, k - 1] = c[:, 3]
@@ -535,8 +581,12 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
             return lloyd.lloyd_round_plain(x, c, fast_math=fast)
         x_bytes = x.numel() * 4
     idx, sums, counts = kernel()
+    again = kernel()
     p_idx, p_sums, p_counts = plain()
     torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip((idx, sums, counts),
+                                                   again)),
+            f"{name}: two calls on the same inputs differ")
     if dup and bool(((idx == 7) | (idx == k - 1)).any()):
         raise AssertionError(f"{name} picked a later duplicate centroid")
     ties = tie_rows(x, c, idx, p_idx, f"{name} against its plain version",
@@ -552,16 +602,26 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     flat = (idx.long() + k * torch.arange(b, device=dev)[:, None]
             ).reshape(-1)
 
-    def scatter(v):
-        return torch.zeros((b * k, m), device=dev).index_add_(
-            0, flat, v.reshape(-1, m)).reshape(b, k, m)
+    def scatter(v, dtype=torch.float32):
+        return torch.zeros((b * k, m), device=dev, dtype=dtype).index_add_(
+            0, flat, v.reshape(-1, m).to(dtype)).reshape(b, k, m)
 
-    ref = scatter(lloyd._bf16(x) if fast else x)
+    def off(got, want):
+        return bool(((got.double() - want.double()).abs()
+                     > SUM_ATOL + SUM_RTOL * want.double().abs()).any())
+
+    xs = lloyd._bf16(x) if fast else x
+    ref, ref64 = scatter(xs), scatter(xs, torch.float64)
     ref_counts = torch.bincount(flat, minlength=b * k).reshape(b, k)
     if not torch.equal(counts, ref_counts.float()):
         raise AssertionError(f"{name} counts differ")
     err = float((sums - ref).abs().max())
-    if bool(((sums - ref).abs() > SUM_ATOL + SUM_RTOL * ref.abs()).any()):
+    err64 = float((sums.double() - ref64).abs().max())
+    plain64 = float((ref.double() - ref64).abs().max())
+    if off(sums, ref64):
+        raise AssertionError(f"{name} sums disagree with the f64 sums: "
+                             f"max abs err {err64}")
+    if not skew and off(sums, ref):
         raise AssertionError(f"{name} sums disagree: max abs err {err}")
     if fast:
         f32 = scatter(x)
@@ -572,11 +632,27 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     if ties == 0 and not torch.equal(counts, p_counts):
         raise AssertionError(f"{name} counts differ from the plain version")
     ms = plain_ms = kb_ms = float("nan")
+    sums_case = None
     if time_it:
         ms = cuda_ms(torch, kernel, 5)
         plain_ms = cuda_ms(torch, plain, 5)
         if grouped:
             kb_ms = cuda_ms(torch, lambda: lloyd.lloyd_round(x, c), 5)
+            sums_ms = cuda_ms(torch, lambda: lloyd.cluster_sums_grouped(
+                xg, idx, k, m, fast), 5)
+        else:
+            sums_ms = cuda_ms(torch, lambda: lloyd.cluster_sums(
+                x, idx, k, fast), 5)
+        sums_plain_ms = cuda_ms(torch, lambda: lloyd.cluster_sums_plain(
+            x, idx, k, fast), 5)
+        library_ms = cuda_ms(torch, lambda: scatter(xs), 5)
+        # x once, idx once; sums and counts written.
+        sums_bound = bound(x_bytes + 4 * (b * n + b * k * m + b * k),
+                           float(b * n * m))
+        sums_case = (sums_ms, sums_plain_ms, *sums_bound, library_ms)
+        log(f"  cluster_sums pass alone: {sums_ms:.3f} ms  plain "
+            f"{sums_plain_ms:.3f} ms  index_add_ {library_ms:.3f} ms  "
+            f"bound {sums_bound[0]:.3f} ms ({sums_bound[1]})")
     bms, by = (lloyd_bound(x_bytes, b, n, k, m, BF16_FLOPS,
                            "operations (bf16 tensor cores)") if fast else
                lloyd_bound(x_bytes, b, n, k, m, TF32_FLOPS,
@@ -584,11 +660,13 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     log(f"{name} B={b} N={n} K={k} M={m}{' dup' if dup else ''}: "
         f"{ties} tie rows differ"
         + (f", {kb_ties} rows from K-B's (0 expected)" if grouped else "")
-        + f"  sums max_abs_err {err:.3g}  "
+        + f"  two calls bit-equal; largest count {int(counts.max())}; sums "
+        f"max_abs_err {err:.3g} (plain f32), {err64:.3g} (f64; the plain "
+        f"f32 sums' own {plain64:.3g})  "
         f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
         + (f"  K-B on the ungrouped data {kb_ms:.3f} ms" if grouped
            else "") + f"  bound {bms:.3f} ms ({by})")
-    return err, ms, plain_ms, bms, by
+    return (err64 if skew else err), ms, plain_ms, bms, by, sums_case
 
 
 def tie_rows(x, c, got, want, what: str, fast: bool = False):
@@ -668,6 +746,18 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+LLOYD_KERNELS = ("lloyd_round", "lloyd_grouped", "lloyd_round_fast",
+                 "lloyd_grouped_fast")
+
+
+def one_sum_pass_a_round(launches: dict, what: str) -> None:
+    """Every K-B or K-C round is followed by one cluster-sum pass."""
+    rounds = sum(launches[k] for k in LLOYD_KERNELS)
+    require(rounds > 0 and launches["cluster_sums"] == rounds,
+            f"{what}: {launches['cluster_sums']} cluster-sum passes for "
+            f"{rounds} Lloyd rounds")
+
+
 def build_db(torch, ft, x, p, d, c, seed):
     """Zeroes the launch counts and builds on the card: ``(db, seconds,
     launches after the build)``."""
@@ -726,6 +816,7 @@ def slice_run(torch, seed: int):
     require(layout == "bucketed", f"layout {layout!r} is not bucketed")
     require(after_build["lloyd_round"] > 0, "the build launched no "
             "lloyd_round")
+    one_sum_pass_a_round(after_build, "the headline build")
     require(launches["adc_scan"] > 0, "the queries launched no adc_scan")
 
     check_build(db, x, P, D, C)
@@ -878,6 +969,7 @@ def sift_run(torch, seed: int):
             "the SIFT build launched no lloyd_grouped")
     require(after_build["lloyd_round"] > 0,
             "the SIFT build launched no lloyd_round")
+    one_sum_pass_a_round(after_build, "the SIFT build")
     require(launches["adc_scan"] > after_build["adc_scan"],
             "the SIFT queries launched no adc_scan")
     check_build(db, x, SIFT_P, SIFT_D, C)
@@ -1663,11 +1755,19 @@ def sift_opq(torch, ft, sift: dict, seed: int, work: Path):
 
 
 def opq_against_pq(torch, db, base, seed: int) -> None:
-    """The OPQ database's quantization error against phase 3's PQ
-    configuration fitted on the same residuals (the coarse fits of two
-    builds may part: K-B's sums are atomics in any order), and against
-    phase 3's own error."""
+    """The SIFT-OPQ build's coarse fit must equal phase 3's bit for bit
+    (the same data and seed, and every Lloyd sum on the card in a fixed
+    order): the same partition centroids, partition indices and vector
+    ids. Then its quantization error against phase 3's PQ configuration
+    fitted on the same residuals, and against phase 3's own error."""
     from flechasdb_tpu_torch.ops import kmeans, opq
+    for name in ("partition_centroids", "partition_indices"):
+        got, want = getattr(db, name), getattr(base, name)
+        require(got.dtype == want.dtype and np.array_equal(got, want),
+                f"SIFT-OPQ's {name} differ from phase 3's: max abs diff "
+                f"{np.abs(got.astype(np.float64) - want).max()}")
+    require(db.vector_ids == base.vector_ids,
+            "SIFT-OPQ's vector ids differ from phase 3's")
     r = torch.as_tensor(db.residues, device="cuda")
     divided = r.reshape(len(r), SIFT_D, -1).transpose(0, 1).contiguous()
     pq = kmeans.fit(divided, C, torch.Generator("cuda").manual_seed(seed))
@@ -1675,11 +1775,9 @@ def opq_against_pq(torch, db, base, seed: int) -> None:
     e_same = opq.quantization_error(r, torch.eye(SIFT_M, device="cuda"), pq,
                                     d=SIFT_D)
     e_opq, e_base = pq_error(torch, db), pq_error(torch, base)
-    same_coarse = np.array_equal(db.partition_centroids,
-                                 base.partition_centroids)
     log(f"SIFT-OPQ quantization error a row {e_opq:.4f}; plain PQ on the "
         f"same residuals {e_same:.4f}; phase 3's PQ {e_base:.4f} (the coarse"
-        f" centroids {'equal' if same_coarse else 'differ from'} phase 3's)")
+        " fit bit-equal to phase 3's)")
     require(e_opq <= e_same, f"OPQ error {e_opq} above plain PQ's {e_same} "
             "on the same residuals")
 
@@ -1705,9 +1803,74 @@ def fast_opq_run(torch, seed: int, head: dict, sift: dict, work: Path):
     for name in ("lloyd_round_fast", "lloyd_grouped_fast", "lloyd_round",
                  "lloyd_grouped", "adc_scan"):
         require(launches[name] > 0, f"phase 6 launched no {name}")
+    one_sum_pass_a_round(launches, "phase 6")
     opq_against_pq(torch, opq_db, sift["db"], seed)
     return launches, scan_at_main_path(torch, index, sift["q"], SIFT_NPROBE,
                                        "the SIFT-OPQ path's rotated")
+
+
+# --- phase 8: the f64 build ---------------------------------------------------
+
+def f64_run(torch, sift: dict, seed: int):
+    """Phase 8: ``DatabaseBuilder(x, np.float64, device="cuda")`` over the
+    first F64_N rows of phase 3's data cast to f64 (P=F64_P, D=8, C=256;
+    trained on the host by the numpy oracle, so it launches no kernel; the
+    rows are cut from 100,000 to keep the phase within a minute), then
+    phase 3's 1000 queries at k=10, nprobe=10 through
+    ``Database.query_batch`` on the card, on the layout the JAX policy
+    picks (masked for this skewed corpus, as for phase 3's), and through
+    ``DeviceIndex(layout="bucketed")``, as phase 3 serves the same corpus:
+    K-A must launch, both must equal the same database served on the CPU
+    up to ties, and 64 corpus rows, queried with ``rerank=100``, must find
+    themselves first. The build time and recall@10 against exact ground
+    truth are printed. Returns ``(launches, K-A case)``."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    x = sift["x"][:F64_N].astype(np.float64)
+    x32, q = x.astype(np.float32), sift["q"]
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = (ft.DatabaseBuilder(x, np.float64, device="cuda")
+          .with_partitions(F64_P).with_divisions(SIFT_D).with_clusters(C)
+          .with_seed(seed).build())
+    build_s = time.perf_counter() - t0
+    built = dict(_kernels.LAUNCHES)
+    require(not any(built.values()), f"the f64 build launched {built}")
+    check_build(db, x32, F64_P, SIFT_D, C)
+    kw = dict(k=K_TOP, nprobe=SIFT_NPROBE)
+    res, first_ms = timed(lambda: db.query_batch(q, **kw))
+    _, warm_ms = timed(lambda: db.query_batch(q, **kw))
+    layout = db._device_state().layout
+    index = DeviceIndex(db.partition_centroids, db.codebooks,
+                        db.codes.astype(np.int32), db.partition_indices,
+                        layout="bucketed", device="cuda")
+    adc, bucket_ms = timed(lambda: index.query(q, **kw))
+    launches = dict(_kernels.LAUNCHES)
+    require(launches["adc_scan"] > 0, "the f64 database's queries launched "
+            "no adc_scan")
+    row_of = {vid: i for i, vid in enumerate(db.vector_ids)}
+    recall = recall_at(adc[1], ground_truth(torch, x32, q, K_TOP))
+    want = host_arrays(ft.Database(**ft.to_arrays(db), device="cpu")
+                       .query_batch(q, **kw), row_of, K_TOP)
+    swapped = same_arrays(host_arrays(res, row_of, K_TOP), want,
+                          f"f64 query_batch ({layout})")
+    swapped += same_arrays(adc[:2], want, "f64 bucketed DeviceIndex")
+    selfs = db.query_batch(x32[:N_CHECK], rerank=RERANK, **kw)
+    found = sum(r[0].vector_id == db.vector_ids[i]
+                for i, r in enumerate(selfs))
+    log(f"f64 build ({F64_N} x {SIFT_M}, P={F64_P}, D={SIFT_D}, C={C}, host "
+        f"oracle): {build_s:.3f} s; query_batch({len(q)}) on the {layout} "
+        f"layout: first {first_ms:.3f} ms, warm {warm_ms:.3f} ms; "
+        f"DeviceIndex(layout='bucketed').query({len(q)}) first "
+        f"{bucket_ms:.3f} ms; recall@10 {recall:.4f}; both equal to the "
+        f"CPU path ({swapped} tie swaps); {found} of {N_CHECK} corpus rows "
+        f"first for themselves (rerank={RERANK}); launches {launches}")
+    require(found == N_CHECK, f"only {found} of {N_CHECK} corpus rows "
+            "found themselves first")
+    return launches, scan_at_main_path(torch, index, q, SIFT_NPROBE,
+                                       "the f64 build's")
 
 
 # --- phase 7: the async tier, the flat tier and the CLI ---------------------
@@ -2033,6 +2196,7 @@ def cli_run(torch, work: Path):
     log(f"launches over the CLI's generate: {launches}")
     for name in ("lloyd_round", "adc_scan"):
         require(launches[name] > 0, f"the CLI's generate launched no {name}")
+    one_sum_pass_a_round(launches, "the CLI's generate")
     sdb = ft.load_database(ft.LocalFileSystem(db), f"{root_of(db)}.binpb",
                            device="cuda")
     sdb.preload()
@@ -2085,6 +2249,17 @@ def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
             "library_ms": None, "ms_by": ms_by, **extra}
 
 
+def sums_row(launches, err, case):
+    """The cluster-sum pass's row, timed alone after the K-B round at the
+    PQ shape; ``library_ms`` is ``index_add_`` of the same sums (the
+    counts are a ``bincount`` more)."""
+    ms, plain_ms, bms, by, library_ms = case
+    out = row("cluster_sums", "cuda", SRC_S, REPLACES["sums"], launches,
+              err, ms, plain_ms, bms, by)
+    out["library_ms"] = library_ms
+    return out
+
+
 def scan_row(replaces, launches, err, case, name="adc_scan"):
     """A K-A row from a timed :func:`scan_case`: its device time with a
     cold L2, the method, and the warm and host times."""
@@ -2119,7 +2294,9 @@ def main() -> None:
                parity_lloyd(torch, gen, 1, CLI_N, CLI_P, CLI_M,
                             time_it=False),
                parity_lloyd(torch, gen, CLI_D, CLI_N, CLI_C,
-                            CLI_M // CLI_D, time_it=False)]
+                            CLI_M // CLI_D, time_it=False),
+               parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M,
+                            skew=True)]
     c_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True),
                parity_lloyd(torch, gen, 60, N, C, 16, grouped=True,
                             time_it=False),
@@ -2172,18 +2349,21 @@ def main() -> None:
                                         work)
         log(f"phase 7 (the async tier, the flat tier, the CLI): "
             f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    f64_launches, a_f64 = f64_run(torch, sift, args.seed)
+    log(f"phase 8 (the f64 build): {time.perf_counter() - t0:.3f} s")
     del head, sift
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli]
+    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 8 (K-A times): {time.perf_counter() - t0:.3f} s")
+    log(f"phase 9 (K-A times): {time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
                 + stored_launches[k] + fo_launches[k] + cli_launches[k]
-                for k in slice_launches}
+                + f64_launches[k] for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),
@@ -2192,16 +2372,19 @@ def main() -> None:
                  lookup, "adc_lookup"),
         row("lloyd_round", "cuda", SRC_B, REPLACES["round"],
             launches["lloyd_round"], max(e[0] for e in b_cases),
-            *b_cases[1][1:]),
+            *b_cases[1][1:5]),
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
-            *c_cases[0][1:]),
+            *c_cases[0][1:5]),
         row("lloyd_round_fast", "cuda", SRC_B, REPLACES["round_fast"],
             launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
-            *bf_cases[1][1:]),
+            *bf_cases[1][1:5]),
         row("lloyd_grouped_fast", "cuda", SRC_C, REPLACES["grouped_fast"],
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
-            *cf_cases[0][1:]),
+            *cf_cases[0][1:5]),
+        sums_row(launches["cluster_sums"],
+                 max(e[0] for e in b_cases + c_cases + bf_cases + cf_cases),
+                 b_cases[1][5]),
     ]
     log(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -39,10 +39,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel since the last :func:`reset_launches`; the
-#: fast_math variants of K-B and K-C count under their own keys.
+#: fast_math variants of K-B and K-C count under their own keys, and the
+#: cluster-sum pass that follows each of their rounds under
+#: ``cluster_sums``.
 LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
             "lloyd_grouped": 0, "lloyd_round_fast": 0,
-            "lloyd_grouped_fast": 0}
+            "lloyd_grouped_fast": 0, "cluster_sums": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: The compiler's output of the build this process made (``None`` when the
@@ -100,10 +102,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fdb_adc_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_adc_scan.restype = i
-    lib.fdb_lloyd_round.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fdb_lloyd_round.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_lloyd_round.restype = i
-    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_lloyd_grouped.restype = i
+    lib.fdb_cluster_sums.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                     p]
+    lib.fdb_cluster_sums.restype = i
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.fdb_cluster_sums_scratch.argtypes = [i, i, i, i, ll, ll]
+    lib.fdb_cluster_sums_scratch.restype = None
 
 
 def load() -> ctypes.CDLL:

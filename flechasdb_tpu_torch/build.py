@@ -12,6 +12,8 @@ The build runs on an explicit device, ``"cuda"`` unless asked otherwise:
 Every Lloyd round is kernel K-B, or K-C for PQ subvector widths below 128
 that divide it (their ``fast_math`` variants under ``with_fast_math``);
 every query's bucket scan is kernel K-A.
+``DatabaseBuilder(x, np.float64)`` trains on the host instead, in f64,
+through :mod:`.oracle` (the JAX package's f64 route), and serves f32.
 The :class:`Database` keeps the JAX package's numpy fields, so
 :mod:`.convert` carries a database across in either direction, and the
 same ``with_seed`` gives the same ``vector_ids`` in both packages.
@@ -20,6 +22,7 @@ same ``with_seed`` gives the same ``vector_ids`` in both packages.
 from __future__ import annotations
 
 import uuid as _uuid
+import warnings
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional, Tuple
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from . import events as ev
-from ._roadmap import not_ported
+from . import oracle
 from .attributes import AttributeValue, check_attribute_value
 from .errors import InvalidArgs
 from .events import EventHandler, _noop
@@ -70,16 +73,29 @@ class DatabaseBuilder:
 
     ``device`` is where the build runs and the database serves from:
     ``"cuda"`` by default, ``"cpu"`` only when asked for (the kernels'
-    plain versions then run)."""
+    plain versions then run).
+
+    ``dtype=np.float64`` trains on the host in f64 through :mod:`.oracle`,
+    as the JAX package's f64 route does (the same draws, events and
+    errors, so the same seed gives the JAX package's f64 database array
+    for array); the database then serves from f32 arrays on ``device``,
+    cast with an overflow check (:class:`InvalidArgs`). Fast math and OPQ
+    raise :class:`InvalidArgs` there."""
 
     def __init__(self, vs, dtype=np.float32,
                  device: str | torch.device = "cuda") -> None:
         dt = np.dtype(dtype)
         if dt == np.float64:
-            raise not_ported("The float64 build", 14)
-        if dt != np.float32:
+            arr = np.asarray(vs, np.float64)
+            if arr.ndim != 2:
+                raise InvalidArgs(
+                    f"f64 build needs an [N, M] array, got {arr.shape}")
+            self._vs = arr
+        elif dt == np.float32:
+            self._vs = as_vector_set(vs)
+        else:
             raise InvalidArgs(f"unsupported build dtype: {dt}")
-        self._vs = as_vector_set(vs)
+        self._dtype = dt.type
         self._device = torch.device(device)
         self._num_partitions = 10
         self._num_divisions = 8
@@ -177,6 +193,13 @@ class DatabaseBuilder:
         vector_ids = _make_uuids(n, rng)
         events(ev.FinishedIdAssignment())
 
+        if self._dtype == np.float64:
+            if self._impl is not None:
+                raise InvalidArgs(
+                    "with_fast_math() is not supported for dtype=float64 "
+                    "(the host oracle is exact by design)")
+            return self._build_f64(x, p, d, c, rng, vector_ids, events)
+
         events(ev.StartingPartitioning())
         cluster_events = ((lambda e: events(ev.ClusterEvent(e)))
                           if events is not _noop else _noop)
@@ -223,6 +246,53 @@ class DatabaseBuilder:
             residues=(parts.residues.cpu().numpy()
                       if self._keep_residues else None),
             rotation=rotation,
+            metric=self._metric,
+            device=str(self._device),
+        )
+
+    def _build_f64(self, x, p, d, c, rng, vector_ids,
+                   events: EventHandler) -> "Database":
+        """The f64 build (the JAX package's ``_build_f64``): training runs
+        in f64 on the host (``oracle.build``), then the serving arrays cast
+        to f32 with an overflow check, since the device path and the wire
+        format (``database.proto:66-72``) are f32."""
+        if self._opq_iters:
+            raise InvalidArgs("OPQ is not supported on the f64 build path")
+
+        events(ev.StartingPartitioning())
+        ob = oracle.build(x, p, d, c, rng, dtype=np.float64)
+        events(ev.FinishedPartitioning())
+        events(ev.StartingSubvectorDivision())
+        residues64 = x - ob.partition_centroids[ob.partition_indices]
+        events(ev.FinishedSubvectorDivision())
+        for i in range(d):
+            events(ev.StartingQuantization(i))
+            events(ev.FinishedQuantization(i))
+
+        def cast32(a, what):
+            with np.errstate(over="ignore"), warnings.catch_warnings():
+                # Overflow is detected and reported as InvalidArgs below.
+                warnings.simplefilter("ignore", RuntimeWarning)
+                out = a.astype(np.float32)
+            if np.isinf(out[np.isfinite(a)]).any():
+                raise InvalidArgs(
+                    f"f64 {what} overflows f32 serving range")
+            return out
+
+        return Database(
+            vector_size=x.shape[1],
+            num_partitions=p,
+            num_divisions=d,
+            num_clusters=c,
+            vector_ids=vector_ids,
+            partition_centroids=cast32(ob.partition_centroids,
+                                       "partition centroids"),
+            partition_indices=np.asarray(ob.partition_indices, np.int32),
+            codebooks=cast32(ob.codebooks, "codebooks"),
+            codes=np.asarray(ob.codes, np.uint32),
+            residues=(cast32(residues64, "residues")
+                      if self._keep_residues else None),
+            rotation=None,
             metric=self._metric,
             device=str(self._device),
         )

@@ -1,4 +1,4 @@
-// K-C: grouped Lloyd round (assignment + cluster sums) for Hopper (sm_90a).
+// K-C: the grouped Lloyd round's assignment for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_grouped_round_kernel`
 // (flechasdb_tpu/ops/pallas_kmeans.py:143, reached by `lloyd_round_grouped`),
@@ -8,11 +8,14 @@
 // divisions of the last group). For every division b < B and row i:
 //
 //     idx[b, i]    = first argmin_k (cc[b, k] - 2 x_b[i] . c[b, k])
-//     sums[b, k]   = sum of x_b[i] over the rows with idx[b, i] == k
-//     counts[b, k] = number of such rows
 //
 // with x_b[i] = xg[b / g, i, (b % g) m : (b % g + 1) m] and cc = |c|^2 from
-// the caller: the contract of K-B (lloyd_round.cu) on grouped data.
+// the caller: the contract of K-B (lloyd_round.cu) on grouped data. The
+// round's sums and counts are the next launch, cluster_sums.cu, which
+// reads the division's slice of xg through strides and adds in an order
+// that idx fixes. Fusing them here, in a fixed order, would need a
+// warp-private [K, m] region for each of the 8 warps: 256 KB at K=256,
+// m=32, over the 227 KB a block may have; so they are not fused.
 //
 // What bounds it on the H100: at the SIFT PQ shape (B=8, N=1M, K=256, m=16)
 // the function is 2*B*N*K*m = 65.5 GFLOP, 0.13 ms at the dense TF32
@@ -56,38 +59,21 @@
 // first minimum wins as in `jnp.argmin` (duplicated centroids give
 // bit-equal distances, so the first of them wins).
 //
-// Sums, fused: while the tile is still in shared memory each warp adds its
-// live rows into a block-private [K, m] sum and [K] count in shared memory
-// (as the TPU kernel accumulates in its resident output block), a column
-// a lane, so that one instruction's adds spread over the banks; they are
-// flushed once at the block's end with one global atomic an entry of a
-// non-empty cluster. Shared float atomics are compare-and-swap loops on
-// sm_90a (ATOMS.CAST.SPIN), which bank conflicts stretch: a float4 a lane
-// put one instruction's 32 adds on 8 rows and 2 bank groups, and was
-// slower. Where the private sums do not fit (K * m beyond the shared
-// budget, e.g. K=4096 at m=16), the same kernel adds to global memory
-// straight from the tile. Float atomics in any order: the sums are not
-// bit-reproducible from run to run; the counts are exact (integers, and
-// their f32 totals stay below 2^24). Rows past N are never added. One
-// launch a round, after the two memsets.
-//
 // fast_math (FAST; the TPU kernel's `fast_math=True` branch,
-// pallas_kmeans.py:189-190 and :221-222): the same blocks, slots, fold and
-// fused sums, with the assignment one bf16 pass, mma.sync.m16n8k16. The
+// pallas_kmeans.py:189-190 and :221-222): the same blocks, slots and fold,
+// with the assignment one bf16 pass, mma.sync.m16n8k16. The
 // block stages its centroids rounded to bf16 (to nearest even, as XLA's
 // astype(bfloat16)) as packed fragment pairs, a step of centroid row g of
 // an n8 tile at s ^ FSW(g), so that a quarter warp's 8-byte loads hit
 // distinct banks; each warp rounds its x fragments once, read as float2
 // from the f32 tile. m=8 is half a k16 step: the upper half of the x and
 // centroid fragments is zero, as the TPU's block-diagonal operand makes
-// the off-block products. The sums add x rounded to bf16, as the TPU
-// kernel sums its bf16 xhi; cc stays f32 from the f32 centroids. Bound:
+// the off-block products; cc stays f32 from the f32 centroids. Bound:
 // the same bytes; 2*B*N*K*m flops at the dense bf16 rate (989.4 TFLOP/s)
 // leave the bytes of xg binding below K = 590 (K = 256 in the SIFT PQ fit).
 //
-// ptxas (nvcc 12.9, sm_90a, -O3), registers a thread: m=8 126, m=16 121,
-// m=32 113, m=64 169, no spills in any (two blocks an SM for m <= 32, one
-// for m=64, whose x slots and sums fill the shared memory).
+// ptxas (nvcc 12.9, sm_90a, -O3), registers a thread: m=8 126, m=16 116,
+// m=32 109, m=64 160; fast: 93, 96, 85, 116; no spills in any.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -193,23 +179,18 @@ __device__ __forceinline__ void load_x(float* slot, const float* xb, int row0,
 }
 
 // Shared memory (dynamic): cent [kt x H] uint4 (FAST: its first kt x FE
-// uint2) | x slots [2 x XTILE] | ccs [kt] | private sums [K x M] and
-// counts [K] (int) when priv.
+// uint2) | x slots [2 x XTILE] | ccs [kt].
 template <int M, bool FAST>
 __global__ void __launch_bounds__(kThreads, Shape<M>::MINB)
 grouped_round_kernel(const float* __restrict__ xg,
                      const float* __restrict__ c,
                      const float* __restrict__ cc,
-                     int32_t* __restrict__ idx, float* __restrict__ sums,
-                     float* __restrict__ counts, int N, int K, int kt,
-                     int priv) {
+                     int32_t* __restrict__ idx, int N, int K, int kt) {
   using S = Shape<M>;
   extern __shared__ __align__(16) float smem[];
   uint4* cent = reinterpret_cast<uint4*>(smem);
   float* xs = smem + (size_t)kt * S::H * 4;
   float* ccs = xs + 2 * S::XTILE;
-  float* sum_s = ccs + kt;
-  int* cnt_s = reinterpret_cast<int*>(sum_s + (size_t)K * M);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -217,8 +198,6 @@ grouped_round_kernel(const float* __restrict__ xg,
   const float* xb = xg + (size_t)(b / S::G) * N * kLanes + (b % S::G) * M;
   const float* cb = c + (size_t)b * K * M;
   const float* ccb = cc + (size_t)b * K;
-  float* sums_b = sums + (size_t)b * K * M;
-  float* counts_b = counts + (size_t)b * K;
   const int n_tiles = (N + S::BM - 1) / S::BM;
   const int n_kt = (K + kt - 1) / kt;
   // This lane's first centroid entry: row g of an n8 tile, column t, with
@@ -227,10 +206,6 @@ grouped_round_kernel(const float* __restrict__ xg,
   const uint4* cw = cent + g * S::H + t;
   const uint2* cw2 = reinterpret_cast<const uint2*>(cent) + g * S::FE + t;
 
-  if (priv) {
-    for (int e = threadIdx.x; e < K * M; e += kThreads) sum_s[e] = 0.f;
-    for (int e = threadIdx.x; e < K; e += kThreads) cnt_s[e] = 0;
-  }
   if (n_kt == 1) stage_centroids<M, FAST>(cent, ccs, cb, ccb, 0, kt, K);
   int tile = blockIdx.x;
   if (tile < n_tiles) load_x<M>(xs, xb, tile * S::BM, N);
@@ -405,60 +380,21 @@ grouped_round_kernel(const float* __restrict__ xg,
         idx[(size_t)b * N + row] = t ? best_k[i][1] : best_k[i][0];
       }
     }
-
-    // The warp's live rows into the sums from the tile, a column a lane,
-    // so that one instruction's 32 adds fall on few rows and many banks.
-#pragma unroll
-    for (int i = 0; i < S::MT; ++i) {
-#pragma unroll
-      for (int u = 0; u < M / 2; ++u) {
-        const int e = lane + 32 * u;
-        const int rr = e / M, col = e % M;  // row of the m16 tile
-        const int k0 = __shfl_sync(0xffffffffu, best_k[i][0], 4 * (rr & 7));
-        const int k1 = __shfl_sync(0xffffffffu, best_k[i][1], 4 * (rr & 7));
-        const int k = rr < 8 ? k0 : k1;
-        if (wrow0 + 16 * i + rr < N) {
-          const float x = xt[(16 * i + rr) * S::LD + col];
-          const float v = FAST ? round_bf16(x) : x;
-          if (priv) {
-            atomicAdd(sum_s + k * M + col, v);
-            if (col == 0) atomicAdd(cnt_s + k, 1);
-          } else {
-            atomicAdd(sums_b + (size_t)k * M + col, v);
-            if (col == 0) atomicAdd(counts_b + k, 1.f);
-          }
-        }
-      }
-    }
-  }
-
-  if (priv) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < K * M; e += kThreads) {
-      if (cnt_s[e / M] != 0) atomicAdd(sums_b + e, sum_s[e]);
-    }
-    for (int k = threadIdx.x; k < K; k += kThreads) {
-      if (cnt_s[k] != 0) atomicAdd(counts_b + k, (float)cnt_s[k]);
-    }
   }
 }
 
 template <int M, bool FAST>
 cudaError_t launch(const float* xg, const float* c, const float* cc,
-                   int32_t* idx, float* sums, float* counts, int B, int N,
-                   int K, cudaStream_t s) {
+                   int32_t* idx, int B, int N, int K, cudaStream_t s) {
   using S = Shape<M>;
-  // Private sums where they fit beside the x slots and one centroid tile;
-  // then as many centroids as fit, a multiple of kKT (all of K if it can).
+  // As many centroids as fit beside the x slots, a multiple of kKT (all
+  // of K if it can).
   const size_t fixed = 2 * S::XTILE * sizeof(float);
   const size_t per_k = S::H * 16 + sizeof(float);  // a staged centroid
-  const size_t priv_bytes = (size_t)K * (M + 1) * 4;
-  const bool priv = fixed + priv_bytes + kKT * per_k <= (size_t)kSmemMax;
-  const size_t avail = kSmemMax - fixed - (priv ? priv_bytes : 0);
   const int k_pad = (K + kKT - 1) / kKT * kKT;
-  const size_t fit = avail / per_k / kKT * kKT;
+  const size_t fit = (kSmemMax - fixed) / per_k / kKT * kKT;
   const int kt = fit < (size_t)k_pad ? (int)fit : k_pad;
-  const size_t bytes = fixed + kt * per_k + (priv ? priv_bytes : 0);
+  const size_t bytes = fixed + kt * per_k;
 
   // Set at every launch on purpose: the attribute belongs to the current
   // device, which may differ from the last launch's.
@@ -476,29 +412,30 @@ cudaError_t launch(const float* xg, const float* c, const float* cc,
       &per_sm, grouped_round_kernel<M, FAST>, kThreads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm == 0) return cudaErrorInvalidConfiguration;
-  // Every block resident at once: B rows of row-tile walkers.
+  // Every block resident at once: B rows of row-tile walkers. The
+  // assignment of a row does not depend on which walker takes it.
   const int n_tiles = (N + S::BM - 1) / S::BM;
   const int fill = per_sm * sms / B;
   const int walkers = fill < 1 ? 1 : fill < n_tiles ? fill : n_tiles;
   const dim3 grid(walkers, B);
   grouped_round_kernel<M, FAST><<<grid, kThreads, bytes, s>>>(
-      xg, c, cc, idx, sums, counts, N, K, kt, (int)priv);
+      xg, c, cc, idx, N, K, kt);
   return cudaGetLastError();
 }
 
 template <bool FAST>
 cudaError_t launch_width(const float* xg, const float* c, const float* cc,
-                         int32_t* idx, float* sums, float* counts, int B,
-                         int N, int K, int M, cudaStream_t s) {
+                         int32_t* idx, int B, int N, int K, int M,
+                         cudaStream_t s) {
   switch (M) {
     case 8:
-      return launch<8, FAST>(xg, c, cc, idx, sums, counts, B, N, K, s);
+      return launch<8, FAST>(xg, c, cc, idx, B, N, K, s);
     case 16:
-      return launch<16, FAST>(xg, c, cc, idx, sums, counts, B, N, K, s);
+      return launch<16, FAST>(xg, c, cc, idx, B, N, K, s);
     case 32:
-      return launch<32, FAST>(xg, c, cc, idx, sums, counts, B, N, K, s);
+      return launch<32, FAST>(xg, c, cc, idx, B, N, K, s);
     case 64:
-      return launch<64, FAST>(xg, c, cc, idx, sums, counts, B, N, K, s);
+      return launch<64, FAST>(xg, c, cc, idx, B, N, K, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -506,30 +443,20 @@ cudaError_t launch_width(const float* xg, const float* c, const float* cc,
 
 }  // namespace
 
-// xg [GG, N, 128] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32,
-// sums [B, K, M] f32, counts [B, K] f32 (zeroed here, on the stream).
+// xg [GG, N, 128] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32.
 // M in {8, 16, 32, 64}, GG = ceil(B / (128 / M)); xg and c 16-byte aligned.
-// fast: the fast_math variant (one bf16 pass; sums of bf16-rounded x). All
-// on the current device (the caller selects it). Returns a cudaError_t.
+// fast: the fast_math variant (one bf16 pass). All on the current device
+// (the caller selects it). Returns a cudaError_t.
 extern "C" int fdb_lloyd_grouped(const void* xg, const void* c,
-                                 const void* cc, void* idx, void* sums,
-                                 void* counts, int B, int GG, int N, int K,
-                                 int M, int fast, void* stream) {
+                                 const void* cc, void* idx, int B, int GG,
+                                 int N, int K, int M, int fast,
+                                 void* stream) {
   (void)GG;  // implied by B and M; the wrapper checks it
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(sums, 0, (size_t)B * K * M * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(counts, 0, (size_t)B * K * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-
   const auto* xf = static_cast<const float*>(xg);
   const auto* cf = static_cast<const float*>(c);
   const auto* ccf = static_cast<const float*>(cc);
   auto* idxi = static_cast<int32_t*>(idx);
-  auto* sf = static_cast<float*>(sums);
-  auto* cnf = static_cast<float*>(counts);
-  return fast ? launch_width<true>(xf, cf, ccf, idxi, sf, cnf, B, N, K, M, s)
-              : launch_width<false>(xf, cf, ccf, idxi, sf, cnf, B, N, K, M,
-                                    s);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return fast ? launch_width<true>(xf, cf, ccf, idxi, B, N, K, M, s)
+              : launch_width<false>(xf, cf, ccf, idxi, B, N, K, M, s);
 }

@@ -1,14 +1,14 @@
-// K-B: fused Lloyd round (assignment + cluster sums) for Hopper (sm_90a).
+// K-B: the Lloyd round's assignment for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_round_kernel` (flechasdb_tpu/ops/pallas_kmeans.py
 // :36, reached by `lloyd_round`). For every batch entry b and row i:
 //
 //     idx[b, i]  = first argmin_k (cc[b, k] - 2 x[b, i] . c[b, k])
-//     sums[b, k] = sum of x[b, i] over the rows with idx[b, i] == k
-//     counts[b, k] = number of such rows
 //
 // with cc[b, k] = |c[b, k]|^2 given by the caller. No |x|^2 term and no clamp:
-// the argmin does not need them.
+// the argmin does not need them. The round's cluster sums and counts are
+// the next launch, cluster_sums.cu, which adds them in an order that idx
+// fixes, so a round gives the same bits every time.
 //
 // What bounds it on the H100: the assignment is 2*N*K*M flops over N*M*4
 // bytes of x, K/2 flops a byte (50 to 512 on the build's shapes). At the
@@ -49,10 +49,6 @@
 // MMA order), so the first of them wins. The N x K distance matrix never
 // exists.
 //
-// The sums are a second, bytes-bound launch of f32 atomics (not
-// bit-reproducible from run to run: their order varies); the counts are
-// exact.
-//
 // fast_math (FAST; the TPU kernel's `fast_math=True` branch,
 // pallas_kmeans.py:93-95 and :136-137): the same blocks, ring and argmin,
 // with the assignment one bf16 pass, mma.sync.m16n8k16 (bf16 in, f32
@@ -63,8 +59,7 @@
 // wholly past M is skipped, a partial one reads the copies' zero fill).
 // The products of bf16 values are exact in f32, so only the order of the
 // f32 sums differs from a plain f32 product of the rounded operands. cc
-// stays f32 from the f32 centroids, as the TPU kernel's. The scatter adds
-// x rounded to bf16, as the TPU kernel sums its bf16 xhi. Bound: the same
+// stays f32 from the f32 centroids, as the TPU kernel's. Bound: the same
 // bytes, and 2*B*N*K*M flops at the dense bf16 tensor-core rate, 989.4
 // TFLOP/s, so the bytes of x bind below K = 590. The float2 fragment
 // loads meet 2-way bank conflicts on the 36-float tile rows; that is left
@@ -97,8 +92,6 @@ constexpr int kNT = kWN / 8;           // n8 tiles a warp
 constexpr int kThreads = 32 * kWarpsM * kWarpsN;
 constexpr int kStageFloats = (kBM + kBN) * kLd;
 constexpr int kSmem = kStages * kStageFloats * (int)sizeof(float);
-constexpr int kScatterThreads = 256;
-constexpr int kScatterRows = 32;
 static_assert(kWarpsN == 2, "the cross-warp merge pairs two warps");
 static_assert(kBM * kBK % (4 * kThreads) == 0 &&
                   kBN * kBK % (4 * kThreads) == 0,
@@ -327,27 +320,6 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   }
 }
 
-template <bool FAST>
-__global__ void __launch_bounds__(kScatterThreads)
-scatter_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
-               float* __restrict__ sums, float* __restrict__ counts,
-               int N, int K, int M) {
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (int)blockIdx.x * kScatterRows;
-  const int r_end = min(N, r0 + kScatterRows);
-  for (int r = r0 + warp; r < r_end; r += kScatterThreads / 32) {
-    const int k = idx[(size_t)b * N + r];
-    const float* xr = x + ((size_t)b * N + r) * M;
-    float* sr = sums + ((size_t)b * K + k) * M;
-    for (int j = lane; j < M; j += 32) {
-      atomicAdd(sr + j, FAST ? round_bf16(xr[j]) : xr[j]);
-    }
-    if (lane == 0) atomicAdd(counts + (size_t)b * K + k, 1.f);
-  }
-}
-
 template <bool VEC, bool FAST>
 cudaError_t launch_assign(const float* x, const float* c, const float* cc,
                           int32_t* idx, int B, int N, int K, int M,
@@ -365,46 +337,24 @@ cudaError_t launch_assign(const float* x, const float* c, const float* cc,
   return cudaGetLastError();
 }
 
-template <bool FAST>
-cudaError_t launch_round(const float* x, const float* c, const float* cc,
-                         int32_t* idx, float* sums, float* counts, int B,
-                         int N, int K, int M, bool vec, cudaStream_t s) {
-  const cudaError_t err =
-      vec ? launch_assign<true, FAST>(x, c, cc, idx, B, N, K, M, s)
-          : launch_assign<false, FAST>(x, c, cc, idx, B, N, K, M, s);
-  if (err != cudaSuccess) return err;
-  const dim3 sgrid((N + kScatterRows - 1) / kScatterRows, B);
-  scatter_kernel<FAST><<<sgrid, kScatterThreads, 0, s>>>(x, idx, sums,
-                                                         counts, N, K, M);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// x [B, N, M] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32,
-// sums [B, K, M] f32, counts [B, K] f32 (zeroed here, on the stream).
+// x [B, N, M] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32.
 // vec: M % 4 == 0 and x, c 16-byte aligned. fast: the fast_math variant
-// (one bf16 pass; sums of bf16-rounded x). All on the current device (the
-// caller selects it). Returns a cudaError_t.
+// (one bf16 pass). All on the current device (the caller selects it).
+// Returns a cudaError_t.
 extern "C" int fdb_lloyd_round(const void* x, const void* c, const void* cc,
-                               void* idx, void* sums, void* counts, int B,
-                               int N, int K, int M, int vec, int fast,
-                               void* stream) {
+                               void* idx, int B, int N, int K, int M, int vec,
+                               int fast, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(sums, 0, (size_t)B * K * M * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(counts, 0, (size_t)B * K * sizeof(float), s);
-  if (err != cudaSuccess) return err;
-
   const auto* xf = static_cast<const float*>(x);
   const auto* cf = static_cast<const float*>(c);
   const auto* ccf = static_cast<const float*>(cc);
   auto* idxi = static_cast<int32_t*>(idx);
-  auto* sf = static_cast<float*>(sums);
-  auto* cnf = static_cast<float*>(counts);
-  return fast ? launch_round<true>(xf, cf, ccf, idxi, sf, cnf, B, N, K, M,
-                                   vec != 0, s)
-              : launch_round<false>(xf, cf, ccf, idxi, sf, cnf, B, N, K, M,
-                                    vec != 0, s);
+  if (fast) {
+    return vec ? launch_assign<true, true>(xf, cf, ccf, idxi, B, N, K, M, s)
+               : launch_assign<false, true>(xf, cf, ccf, idxi, B, N, K, M, s);
+  }
+  return vec ? launch_assign<true, false>(xf, cf, ccf, idxi, B, N, K, M, s)
+             : launch_assign<false, false>(xf, cf, ccf, idxi, B, N, K, M, s);
 }

@@ -1,6 +1,7 @@
-"""The fused Lloyd round: K-B (``csrc/lloyd_round.cu``) over ``[B, N, M]``
-data, K-C (``csrc/lloyd_grouped.cu``) over division-grouped data, and
-their plain versions.
+"""The Lloyd round: K-B (``csrc/lloyd_round.cu``) over ``[B, N, M]``
+data, K-C (``csrc/lloyd_grouped.cu``) over division-grouped data, the
+cluster-sum pass after either (``csrc/cluster_sums.cu``), and their plain
+versions.
 
 :func:`lloyd_round` keeps the contract of the JAX package's
 ``ops/pallas_kmeans.lloyd_round``: ``x [B, N, M]`` f32 and ``centroids
@@ -9,34 +10,46 @@ their plain versions.
 ``‖c_k‖² − 2 x_i·c_k`` (no ``‖x‖²`` term, no clamp) and ``sums``/``counts``
 are the member sums and sizes under that fresh assignment.
 
-On a CUDA tensor it launches the kernel, whose product is 3xTF32 on the
-tensor cores (tf32 hi and lo parts of each f32 operand, lo·hi + hi·lo +
-hi·hi accumulated in f32: about 2⁻²¹ relative error, whatever the
-process's TF32 flags), so it ranks as an f32 product does up to
-near-ties; on a CPU tensor it runs :func:`lloyd_round_plain`. The source
-note on what bounds the kernel and how its design answers is at the top
-of ``csrc/lloyd_round.cu``.
+On a CUDA tensor it launches the kernel for the assignment, whose
+product is 3xTF32 on the tensor cores (tf32 hi and lo parts of each f32
+operand, lo·hi + hi·lo + hi·hi accumulated in f32: about 2⁻²¹ relative
+error, whatever the process's TF32 flags), so it ranks as an f32 product
+does up to near-ties, then :func:`cluster_sums` for the sums and counts;
+on a CPU tensor it runs :func:`lloyd_round_plain`. The source note on
+what bounds the kernel and how its design answers is at the top of
+``csrc/lloyd_round.cu``.
+
+:func:`cluster_sums` adds each cluster's rows in an order that the
+assignment alone fixes (its rows in ascending order, in fixed chunks,
+the chunks in order; no float atomics), so a round on the card returns
+the same bits every time it gets the same inputs, and two builds with
+the same seed are equal. The sums differ from the plain version's serial
+``index_add_`` only by that order; the counts are exact.
 
 :func:`lloyd_round_grouped` keeps the contract of the JAX package's
 ``pallas_kmeans.lloyd_round_grouped``: ``xg [G, N, 128]`` from
 :func:`regroup_divisions` and ``centroids [B, K, m]`` (``128 % m == 0``)
 → the same three outputs as :func:`lloyd_round` on the ungrouped data.
-On a CUDA tensor it launches K-C (m in 8, 16, 32, 64), one launch a
-round with the cluster sums fused: the same 3xTF32 tensor-core product in
-K-B's order, so its distances, and so its indices, equal K-B's on the
-ungrouped data; on a CPU tensor it runs :func:`lloyd_round_grouped_plain`.
-The source note is at the top of ``csrc/lloyd_grouped.cu``.
+On a CUDA tensor it launches K-C (m in 8, 16, 32, 64): the same 3xTF32
+tensor-core product in K-B's order, so its distances, and so its indices,
+equal K-B's on the ungrouped data; then :func:`cluster_sums_grouped`,
+which reads each division's slice of ``xg`` through strides. On a CPU
+tensor it runs :func:`lloyd_round_grouped_plain`. The source note is at
+the top of ``csrc/lloyd_grouped.cu``.
 
 ``fast_math=True`` on either is the TPU kernels' ``fast_math`` branch:
 the cross term is one bf16 pass (x and the centroids rounded to bf16, to
 nearest even, their products accumulated in f32; ``‖c‖²`` stays f32 from
 the f32 centroids) and the sums add the bf16-rounded x. On a CUDA tensor
 it launches the kernel's fast variant (``mma.sync.m16n8k16`` bf16),
-counted under ``lloyd_round_fast`` / ``lloyd_grouped_fast``; on a CPU
-tensor the plain version computes the same function.
+counted under ``lloyd_round_fast`` / ``lloyd_grouped_fast``, and the
+cluster-sum pass's fast variant; on a CPU tensor the plain version
+computes the same function.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -77,13 +90,117 @@ def lloyd_round_plain(x: torch.Tensor, centroids: torch.Tensor,
     for s in range(0, n, _CHUNK):
         d = cc[:, None, :] - 2.0 * torch.bmm(x[:, s:s + _CHUNK], ct)
         idx[:, s:s + _CHUNK] = torch.argmin(d, dim=-1).to(torch.int32)
+    # x is already rounded under fast_math.
+    return (idx, *cluster_sums_plain(x, idx, k))
+
+
+def cluster_sums_plain(x: torch.Tensor, idx: torch.Tensor, k: int,
+                       fast_math: bool = False,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [B, N, M]`` and ``idx [B, N]`` → ``(sums [B, K, M], counts
+    [B, K])`` by ``index_add_``; ``fast_math`` adds x rounded to bf16."""
+    b, n, m = x.shape
+    if fast_math:
+        x = _bf16(x)
     flat = (idx.long() + k * torch.arange(b, device=x.device)[:, None]
             ).reshape(-1)
     sums = torch.zeros((b * k, m), dtype=torch.float32, device=x.device)
     sums.index_add_(0, flat, x.reshape(b * n, m))
     counts = torch.zeros(b * k, dtype=torch.float32, device=x.device)
     counts.index_add_(0, flat, torch.ones(b * n, device=x.device))
-    return idx, sums.reshape(b, k, m), counts.reshape(b, k)
+    return sums.reshape(b, k, m), counts.reshape(b, k)
+
+
+def _launch_sums(x: torch.Tensor, idx: torch.Tensor, b: int, n: int, k: int,
+                 m: int, g: int, fast_math: bool,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches the cluster-sum pass on ``b`` divisions of ``n`` rows:
+    division ``j`` starts at float ``(j // g)·n·rs + (j % g)·m`` of ``x``,
+    its rows ``rs = x.shape[-1]`` floats apart. Allocates its outputs and
+    its scratch."""
+    lib = _kernels.load()
+    ints, floats = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.fdb_cluster_sums_scratch(b, n, k, m, ctypes.byref(ints),
+                                 ctypes.byref(floats))
+    dev = x.device
+    sums = torch.empty((b, k, m), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, k), dtype=torch.float32, device=dev)
+    iwork = torch.empty(ints.value, dtype=torch.int32, device=dev)
+    fwork = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fdb_cluster_sums(
+            x.data_ptr(), idx.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+            iwork.data_ptr(), fwork.data_ptr(), b, n, k, m, g, x.shape[-1],
+            int(fast_math), _kernels.stream_of(x))
+    _kernels.check(rc, "cluster_sums")
+    _kernels.LAUNCHES["cluster_sums"] += 1
+    return sums, counts
+
+
+def _check_sums(x: torch.Tensor, idx: torch.Tensor, b: int, n: int,
+                k: int) -> None:
+    if idx.shape != (b, n) or idx.dtype != torch.int32 \
+            or not idx.is_contiguous() or idx.device != x.device:
+        raise ValueError(f"idx must be a contiguous int32 [{b}, {n}] on "
+                         f"{x.device}; got {idx.dtype} {tuple(idx.shape)} "
+                         f"on {idx.device}")
+    if k <= 0:
+        raise ValueError(f"the cluster sums need k > 0, got {k}")
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= k):
+        raise ValueError(f"idx must lie in [0, {k})")
+
+
+def _sums_device(x: torch.Tensor) -> bool:
+    """True on a CUDA tensor (the kernel runs), False on a CPU one."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device: {x.device}")
+    return x.device.type == "cuda"
+
+
+def cluster_sums(x: torch.Tensor, idx: torch.Tensor, k: int,
+                 fast_math: bool = False,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [B, N, M]`` f32, ``idx [B, N]`` int32 in ``[0, k)`` → ``(sums
+    [B, K, M], counts [B, K])`` f32: the member sums and sizes of the
+    assignment, each sum in an order fixed by ``idx`` (see the module
+    docstring); ``fast_math`` adds x rounded to bf16. A CPU tensor takes
+    :func:`cluster_sums_plain`."""
+    if x.ndim != 3 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("cluster_sums takes a contiguous f32 x [B, N, M]")
+    b, n, m = x.shape
+    _check_sums(x, idx, b, n, k)
+    if not _sums_device(x):
+        return cluster_sums_plain(x, idx, k, fast_math)
+    if b == 0 or n == 0:
+        return (torch.zeros((b, k, m), device=x.device),
+                torch.zeros((b, k), device=x.device))
+    return _launch_sums(x, idx, b, n, k, m, 1, fast_math)
+
+
+def cluster_sums_grouped(xg: torch.Tensor, idx: torch.Tensor, k: int,
+                         m: int, fast_math: bool = False,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cluster_sums` of the ``B = idx.shape[0]`` divisions of
+    width ``m`` in ``xg [G, N, 128]`` (:func:`regroup_divisions`), read
+    in place. A CPU tensor ungroups and takes :func:`cluster_sums_plain`.
+    """
+    if (xg.ndim != 3 or xg.shape[2] != GROUP_WIDTH
+            or xg.dtype != torch.float32 or not xg.is_contiguous()):
+        raise ValueError("cluster_sums_grouped takes a contiguous f32 xg "
+                         f"[G, N, {GROUP_WIDTH}]")
+    if m <= 0 or GROUP_WIDTH % m:
+        raise ValueError(f"m={m} does not divide {GROUP_WIDTH}")
+    b, n = idx.shape[0], xg.shape[1]
+    if xg.shape[0] != -(-b // (GROUP_WIDTH // m)):
+        raise ValueError(f"xg holds {xg.shape[0]} groups; B={b} divisions "
+                         f"of width {m} need {-(-b // (GROUP_WIDTH // m))}")
+    _check_sums(xg, idx, b, n, k)
+    if not _sums_device(xg):
+        return cluster_sums_plain(_ungroup(xg, b, m), idx, k, fast_math)
+    if b == 0 or n == 0:
+        return (torch.zeros((b, k, m), device=xg.device),
+                torch.zeros((b, k), device=xg.device))
+    return _launch_sums(xg, idx, b, n, k, m, GROUP_WIDTH // m, fast_math)
 
 
 def _check(x: torch.Tensor, centroids: torch.Tensor) -> None:
@@ -142,16 +259,20 @@ def regroup_divisions(x: torch.Tensor) -> torch.Tensor:
     return xt.reshape(n, gg, GROUP_WIDTH).transpose(0, 1).contiguous()
 
 
+def _ungroup(xg: torch.Tensor, b: int, m: int) -> torch.Tensor:
+    """The ``[B, N, m]`` divisions of :func:`regroup_divisions`' ``xg``."""
+    gg, n, _ = xg.shape
+    return xg.reshape(gg, n, GROUP_WIDTH // m, m).transpose(1, 2) \
+        .reshape(-1, n, m)[:b].contiguous()
+
+
 def lloyd_round_grouped_plain(xg: torch.Tensor, centroids: torch.Tensor,
                               fast_math: bool = False,
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Ungroups ``xg`` and runs :func:`lloyd_round_plain`."""
     b, _, m = centroids.shape
-    gg, n, _ = xg.shape
-    x = xg.reshape(gg, n, GROUP_WIDTH // m, m).transpose(1, 2) \
-        .reshape(-1, n, m)[:b].contiguous()
-    return lloyd_round_plain(x, centroids, fast_math)
+    return lloyd_round_plain(_ungroup(xg, b, m), centroids, fast_math)
 
 
 def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
@@ -171,10 +292,9 @@ def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
     if k == 0:
         raise ValueError("lloyd_round_grouped needs at least one centroid")
     idx = torch.empty((b, n), dtype=torch.int32, device=xg.device)
-    sums = torch.empty((b, k, m), dtype=torch.float32, device=xg.device)
-    counts = torch.empty((b, k), dtype=torch.float32, device=xg.device)
     if b == 0 or n == 0:
-        return idx, sums.zero_(), counts.zero_()
+        return (idx, torch.zeros((b, k, m), device=xg.device),
+                torch.zeros((b, k), device=xg.device))
     if xg.data_ptr() % 16:
         xg = xg.clone()
     if centroids.data_ptr() % 16:
@@ -184,18 +304,19 @@ def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
     with torch.cuda.device(xg.device):
         rc = lib.fdb_lloyd_grouped(
             xg.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
-            idx.data_ptr(), sums.data_ptr(), counts.data_ptr(), b, gg, n, k,
-            m, int(fast_math), _kernels.stream_of(xg))
+            idx.data_ptr(), b, gg, n, k, m, int(fast_math),
+            _kernels.stream_of(xg))
     name = "lloyd_grouped_fast" if fast_math else "lloyd_grouped"
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
-    return idx, sums, counts
+    return (idx, *_launch_sums(xg, idx, b, n, k, m, GROUP_WIDTH // m,
+                               fast_math))
 
 
 def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
                 fast_math: bool = False,
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused assignment + cluster-sum pass; see the module docstring."""
+    """Assignment, then the cluster-sum pass; see the module docstring."""
     _check(x, centroids)
     if x.device.type == "cpu":
         return lloyd_round_plain(x, centroids, fast_math)
@@ -206,10 +327,9 @@ def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
     if k == 0:
         raise ValueError("lloyd_round needs at least one centroid")
     idx = torch.empty((b, n), dtype=torch.int32, device=x.device)
-    sums = torch.empty((b, k, m), dtype=torch.float32, device=x.device)
-    counts = torch.empty((b, k), dtype=torch.float32, device=x.device)
     if b == 0 or n == 0:
-        return idx, sums.zero_(), counts.zero_()
+        return (idx, torch.zeros((b, k, m), device=x.device),
+                torch.zeros((b, k), device=x.device))
     cc = (centroids * centroids).sum(dim=-1).contiguous()
     vec = m % 4 == 0 and x.data_ptr() % 16 == 0 \
         and centroids.data_ptr() % 16 == 0
@@ -217,9 +337,9 @@ def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = lib.fdb_lloyd_round(
             x.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
-            idx.data_ptr(), sums.data_ptr(), counts.data_ptr(), b, n, k, m,
-            int(vec), int(fast_math), _kernels.stream_of(x))
+            idx.data_ptr(), b, n, k, m, int(vec), int(fast_math),
+            _kernels.stream_of(x))
     name = "lloyd_round_fast" if fast_math else "lloyd_round"
     _kernels.check(rc, name)
     _kernels.LAUNCHES[name] += 1
-    return idx, sums, counts
+    return (idx, *_launch_sums(x, idx, b, n, k, m, 1, fast_math))

@@ -18,14 +18,21 @@ class Partitions(NamedTuple):
     indices: torch.Tensor
     residues: torch.Tensor
 
+    def reconstruct(self, i: int | torch.Tensor) -> torch.Tensor:
+        """Original vector(s): residue + centroid (``partitions.rs:68-93``).
+        """
+        return self.residues[i] + self.centroids[self.indices[i].long()]
+
 
 def partition(x: torch.Tensor, p: int, generator: torch.Generator,
               events: EventHandler = _noop,
+              epsilon: float = kmeans.DEFAULT_EPSILON,
               impl: str | None = None) -> Partitions:
     """Clusters ``x [N, M]`` into ``p`` partitions and computes residues.
-    ``impl`` selects the Lloyd round's kernel and numerics, as in
-    :func:`.ops.kmeans.fit` (e.g. ``"_fast"``: the auto kernel with
-    ``fast_math`` numerics)."""
-    res = kmeans.fit(x[None], p, generator, handler=events, impl=impl)
+    ``epsilon`` is the fit's convergence threshold; ``impl`` selects the
+    Lloyd round's kernel and numerics, as in :func:`.ops.kmeans.fit`
+    (e.g. ``"_fast"``: the auto kernel with ``fast_math`` numerics)."""
+    res = kmeans.fit(x[None], p, generator, epsilon=epsilon, handler=events,
+                     impl=impl)
     centroids, indices = res.centroids[0], res.indices[0]
     return Partitions(centroids, indices, x - centroids[indices.long()])

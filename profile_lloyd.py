@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Times the Lloyd rounds, K-B, K-C and their fast variants, on one NVIDIA
+GPU at ``chip_smoke.py``'s phase-1 shapes, for this tree and, with
+``--other``, another tree's, in turns on the same tensors.
+
+    python3 profile_lloyd.py [--other DIR] [--seed N] [--out F]
+
+A round is what ``ops.lloyd.lloyd_round`` / ``lloyd_round_grouped``
+returns: the assignment, the cluster sums and the counts (in this tree,
+the assignment kernel and the cluster-sum pass; in a tree from before the
+pass, whatever that tree launches). ``--other DIR`` imports
+``DIR/flechasdb_tpu_torch`` (say, a ``git archive`` of the parent commit
+unpacked under the gitignored ``build/``) under another name; its kernels
+build into its own ``build/``. At each shape the two trees run other,
+this, this, other. Each run is checked against this tree's plain version
+of its own assignment: the counts must equal ``bincount``'s and this
+tree's sums must lie within ``chip_smoke.SUM_RTOL`` / ``SUM_ATOL`` of the
+f64 sums (for the other tree that is recorded, as is whether a second
+call returns the same bits: a tree that adds with float atomics may
+not). Times are ``chip_smoke.cuda_ms``: CUDA-event
+means over back-to-back warm calls, median of five. For this tree the
+cluster-sum pass is also timed alone, and ``torch.profiler`` splits its
+device time over its six kernels. One line per run is printed and all are
+written to ``--out`` (default ``chiprun_out/profile_lloyd.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+import profile_scan
+
+# (label, B, N, K, M, grouped, fast, skew): phase 1's timed shapes.
+SHAPES = [
+    ("K-B PQ", cs.D, cs.N, cs.C, cs.M // cs.D, False, False, False),
+    ("K-B coarse", 1, cs.N, cs.P, cs.M, False, False, False),
+    ("K-B K=1024", 1, 65_536, 1024, 128, False, False, False),
+    ("K-B SIFT coarse", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M, False, False,
+     False),
+    ("K-B SIFT coarse skewed", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M, False,
+     False, True),
+    ("K-B fast PQ", cs.D, cs.N, cs.C, cs.M // cs.D, False, True, False),
+    ("K-B fast coarse", 1, cs.N, cs.P, cs.M, False, True, False),
+    ("K-B fast K=1024", 1, 65_536, 1024, 128, False, True, False),
+    ("K-B fast SIFT coarse", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M, False,
+     True, False),
+    ("K-C SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, False, False),
+    ("K-C fast SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, True, False),
+]
+
+
+def inputs(torch, gen, b, n, k, m, skew):
+    """``chip_smoke.parity_lloyd``'s data: unit rows across B·m, centroids
+    drawn from the rows; ``skew`` puts 5/8 of the rows next to centroid
+    0."""
+    x = torch.randn((b, n, m), generator=gen, device="cuda")
+    x /= x.norm(dim=(0, 2), keepdim=True)
+    c = x[:, torch.randint(0, n, (k,), generator=gen, device="cuda")] \
+        .contiguous()
+    if skew:
+        crowd = n // 2 + n // 8
+        x[:, :crowd] = c[:, :1] + 1e-3 * torch.randn(
+            (b, crowd, m), generator=gen, device="cuda")
+    return x, c
+
+
+def run(torch, lloyd, this, x, xg, c, grouped, fast, mine: bool) -> dict:
+    def call():
+        if grouped:
+            return lloyd.lloyd_round_grouped(xg, c, fast_math=fast)
+        return lloyd.lloyd_round(x, c, fast_math=fast)
+    idx, sums, counts = call()
+    again = call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip((idx, sums, counts), again))
+    del again
+    b, _, m = x.shape
+    k = c.shape[1]
+    xs = this._bf16(x) if fast else x
+    flat = (idx.long() + k * torch.arange(b, device="cuda")[:, None]
+            ).reshape(-1)
+    want = torch.zeros((b * k, m), dtype=torch.float64, device="cuda") \
+        .index_add_(0, flat, xs.reshape(-1, m).double()).reshape(b, k, m)
+    cs.require(torch.equal(counts, torch.bincount(flat, minlength=b * k)
+                           .reshape(b, k).float()), "counts differ")
+    err = float((sums.double() - want).abs().max())
+    within = bool(((sums.double() - want).abs()
+                   <= cs.SUM_ATOL + cs.SUM_RTOL * want.abs()).all())
+    cs.require(within or not mine, f"sums disagree with the f64 sums: {err}")
+    cs.require(same or not mine, "two calls differ")
+    del idx, sums, counts, want, flat
+    return {"ms": cs.cuda_ms(torch, call, 5), "reproducible": same,
+            "max_abs_err_f64": err, "within_tolerance": within}
+
+
+PASS_KERNELS = ("tile_count", "tile_scan", "cluster_scan", "place",
+                "chunk_sum", "combine")
+
+
+def pass_breakdown(torch, fn, reps: int = 5) -> dict:
+    """Device ms a call of each of the pass's kernels (``torch.profiler``
+    over ``reps`` calls after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(PASS_KERNELS, 0.0)
+    for e in prof.key_averages():
+        for name in PASS_KERNELS:
+            if name in e.key:
+                out[name] += (getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0)
+                              ) / reps / 1e3
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="a tree whose Lloyd rounds run beside "
+                    "this one's")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--out", default="chiprun_out/profile_lloyd.json")
+    args = ap.parse_args()
+
+    import torch
+    cs.setup(torch)
+    from flechasdb_tpu_torch.ops import lloyd
+    trees = [("this", lloyd)]
+    if args.other:
+        profile_scan.load_other(args.other)
+        sys.modules["other_fdb"]._kernels.load()
+        other = importlib.import_module("other_fdb.ops.lloyd")
+        trees = [("other", other), ("this", lloyd), ("this", lloyd),
+                 ("other", other)]
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    records = []
+    for label, b, n, k, m, grouped, fast, skew in SHAPES:
+        x, c = inputs(torch, gen, b, n, k, m, skew)
+        xg = lloyd.regroup_divisions(x) if grouped else None
+        rate, ops = ((cs.BF16_FLOPS, "operations (bf16 tensor cores)")
+                     if fast else
+                     (cs.TF32_FLOPS, "operations (TF32 tensor cores)"))
+        x_bytes = (xg if grouped else x).numel() * 4
+        bms, by = cs.lloyd_bound(x_bytes, b, n, k, m, rate, ops)
+        for turn, (tree, mod) in enumerate(trees):
+            r = run(torch, mod, lloyd, x, xg, c, grouped, fast,
+                    tree == "this")
+            r.update(shape=label, b=b, n=n, k=k, m=m, tree=tree, turn=turn,
+                     bound_ms=bms, bound_by=by)
+            records.append(r)
+            cs.log(f"{label} B={b} N={n} K={k} M={m} [{tree}]: "
+                   f"{r['ms']:.3f} ms, bound {bms:.3f} ms ({by}); two "
+                   f"calls {'bit-equal' if r['reproducible'] else 'DIFFER'};"
+                   f" sums max_abs_err vs f64 {r['max_abs_err_f64']:.3g}"
+                   f"{'' if r['within_tolerance'] else ' (over the tolerance)'}")
+        idx = (lloyd.lloyd_round_grouped(xg, c, fast)[0] if grouped
+               else lloyd.lloyd_round(x, c, fast)[0])
+        if grouped:
+            def sums():
+                return lloyd.cluster_sums_grouped(xg, idx, k, m, fast)
+        else:
+            def sums():
+                return lloyd.cluster_sums(x, idx, k, fast)
+        sbound = cs.bound(x_bytes + 4 * (b * n + b * k * m + b * k),
+                          float(b * n * m))
+        r = {"shape": label, "tree": "this", "part": "cluster_sums",
+             "ms": cs.cuda_ms(torch, sums, 5), "bound_ms": sbound[0],
+             "bound_by": sbound[1]}
+        records.append(r)
+        cs.log(f"{label} [this] cluster-sum pass alone: {r['ms']:.3f} ms, "
+               f"bound {sbound[0]:.3f} ms ({sbound[1]})")
+        split = pass_breakdown(torch, sums)
+        records.append({"shape": label, "tree": "this",
+                        "part": "cluster_sums kernels", "ms_by_kernel": split})
+        cs.log(f"{label} [this] the pass's kernels (torch.profiler, ms a "
+               "call): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        del x, xg, c, idx
+        torch.cuda.empty_cache()
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(records, indent=1))
+    print(json.dumps({"ok": True, "records": len(records),
+                      "device": torch.cuda.get_device_name(0)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -16,9 +16,9 @@ on the ungrouped data exactly (K-C forms K-B's 3xTF32 tensor-core
 product in K-B's order) and with the cuBLAS plain version up to near-ties
 (the f32 plain version rounds differently). The card cases also cover
 N below one row tile of the kernel, K=1, centroid tiles walked over K
-(m=64, K=300) and sums added to global memory where the block-private
-ones do not fit (K=4096), and hold the counts to N, so rows past N add
-nothing.
+(m=64, K=300) and K=4096, where the cluster-sum pass keeps its counters
+in its scratch instead of shared memory, and hold the counts to N, so
+rows past N add nothing.
 """
 
 import types

@@ -255,13 +255,19 @@ def test_raises_the_same_invalid_args():
 
 
 def test_unported_options_raise_and_name_their_item(tmp_path):
-    """The f64 build still names its item (14); fast math and OPQ (items
-    12 and 13) now build, refuse what the JAX package refuses, and a JAX
-    OPQ database carried across answers as the JAX package does."""
+    """The f64 build (item 14), fast math and OPQ (items 12 and 13) now
+    build, refuse what the JAX package refuses, and a JAX OPQ database
+    carried across answers as the JAX package does."""
     x = np.random.default_rng(3).standard_normal((64, 8)).astype(np.float32)
     b = ft.DatabaseBuilder(x, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 14\b"):
-        ft.DatabaseBuilder(x, np.float64)
+    f64 = _builder(ft, x.astype(np.float64), 4, 2, 4, 0, dtype=np.float64,
+                   device="cpu").build()
+    jf64 = _builder(fdb, x.astype(np.float64), 4, 2, 4, 0,
+                    dtype=np.float64).build()
+    np.testing.assert_array_equal(f64.codes, jf64.codes)
+    np.testing.assert_array_equal(f64.partition_centroids,
+                                  jf64.partition_centroids)
+    assert f64.query(x[0], k=3, nprobe=4)[0].vector_id == f64.vector_ids[0]
     assert b.with_fast_math() is b and b.with_fast_math(False) is b
     for iters in (0, -1):
         with pytest.raises(errors.InvalidArgs) as got:
@@ -337,6 +343,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "got = asyncio.run(go())\n"
         "assert [r.vector_id for r in got] == [r.vector_id for r in cold]\n"
         "fdb = flat.FlatDatabase(x, seed=1, device='cpu')\n"
+        "from flechasdb_tpu_torch import oracle\n"
+        "from flechasdb_tpu_torch.utils import WeightedIndex, annotate, "
+        "trace\n"
+        "assert WeightedIndex([0.0, 1.0]).sample() == 1\n"
+        "with annotate('phase'):\n"
+        "    f64 = (ft.DatabaseBuilder(x.astype(np.float64), np.float64,"
+        " device='cpu').with_partitions(4).with_divisions(4)"
+        ".with_clusters(8).with_seed(1).build())\n"
+        "assert f64.query(x[0], k=1, nprobe=4)[0].vector_id == "
+        "f64.vector_ids[0]\n"
+        "assert oracle.MAX_ROUNDS == 100\n"
         "assert fdb.query(x[5], k=1)[0].vector_index == 5\n"
         "assert objectstore.FsspecFileSystem is ft.FsspecFileSystem\n"
         "assert not [m for m in sys.modules if m == 'flechasdb_tpu'"
@@ -391,6 +408,46 @@ def test_host_copies_behave_as_the_originals():
         pidx[: n // 3] = 0
         assert host.choose_layout(p, pidx, n) == \
             jserving._choose_layout(p, pidx, n)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_oracle_copy_returns_the_originals_arrays(dtype):
+    from flechasdb_tpu import oracle as joracle
+    from flechasdb_tpu_torch import oracle
+
+    assert oracle.MAX_ROUNDS == joracle.MAX_ROUNDS
+    assert oracle.EPSILON == joracle.EPSILON
+    x = np.random.default_rng(12).standard_normal((300, 12)).astype(dtype)
+
+    def same(a, b):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
+
+    for fn, args in [("plusplus_init", (x, 6)),
+                     ("weighted_sample", (np.abs(x[:, 0]),))]:
+        got = getattr(oracle, fn)(*args, np.random.default_rng(1))
+        want = getattr(joracle, fn)(*args, np.random.default_rng(1))
+        np.testing.assert_array_equal(got, want)
+    assert oracle.weighted_sample(np.zeros(4), None) == \
+        joracle.weighted_sample(np.zeros(4), None) == 0
+    km = oracle.kmeans(x, 5, np.random.default_rng(2), dtype=dtype)
+    jkm = joracle.kmeans(x, 5, np.random.default_rng(2), dtype=dtype)
+    same(km, jkm)
+    assert km.rounds == jkm.rounds and km.gradient == jkm.gradient
+    same(oracle.kmeans(x[:5], 5, np.random.default_rng(0)),
+         joracle.kmeans(x[:5], 5, np.random.default_rng(0)))
+    with pytest.raises(ValueError) as got:
+        oracle.kmeans(x[:3], 5, np.random.default_rng(0))
+    with pytest.raises(ValueError) as want:
+        joracle.kmeans(x[:3], 5, np.random.default_rng(0))
+    assert str(got.value) == str(want.value)
+    assert oracle.inertia(x, km.centroids, km.indices) == \
+        joracle.inertia(x, jkm.centroids, jkm.indices)
+    b = oracle.build(x, 4, 3, 8, np.random.default_rng(3), dtype=dtype)
+    jb = joracle.build(x, 4, 3, 8, np.random.default_rng(3), dtype=dtype)
+    same(b, jb)
+    for v in x[:3]:
+        same(oracle.adc_query(v, b, 10, 2), joracle.adc_query(v, jb, 10, 2))
 
 
 @pytest.mark.cuda
