@@ -48,8 +48,17 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C; at each timed shape the cluster-sum pass
-   is also timed alone, with its plain version and ``index_add_``. K-A is
-   only checked here and timed in phase 9.
+   is also timed alone as the rounds launch it (``_launch_sums``: no
+   host sync in the timed call; CUDA events here, its device time in
+   phase 9), with its plain version and ``index_add_``, and the route
+   and tiling it took (``ops.lloyd.sum_tiling``) are printed. At K-B's
+   PQ shape and K-C's SIFT PQ shape, full and fast, the dense route's
+   sums and counts must equal ``cluster_sums_ordered``'s (its order in
+   plain PyTorch) bit for bit. The pass's sort route, which takes the
+   shapes above the dense route's K limit, is held at K=8192, N=50k,
+   M=8, full and fast: two calls bit-equal, counts ``bincount``'s, sums
+   within the tolerance of the f64 sums. K-A is only checked here and
+   timed in phase 9.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -182,8 +191,11 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    the CPU up to ties; 64 corpus rows must find themselves first
    (``rerank=100``); the build time and recall@10 against exact ground
    truth are printed.
-9. K-A's times, after the paths, so that ``torch.profiler`` has not run
-   in the process while they were timed: at phase 1's six shapes and at
+9. K-A's times and the cluster-sum pass's, after the paths, so that
+   ``torch.profiler`` has not run in the process while they were timed.
+   The pass: its device time a call at each of phase 1's timed shapes
+   (``torch.profiler``'s CUDA activity for its kernels over back-to-back
+   calls), split over its kernels. K-A: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
@@ -535,7 +547,7 @@ def scan_error(torch, got, want) -> float:
 
 
 def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
-                 grouped=False, fast=False, skew=False):
+                 grouped=False, fast=False, skew=False, ordered=False):
     """K-B (or, ``grouped``, K-C on the regrouped data) against its plain
     version; K-C also against K-B's assignment. Picks may differ only
     where two centroids are within TIE_REL of a tie. ``fast``: the
@@ -547,8 +559,13 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     under ``skew``, of the plain f32 ``index_add_`` too: ``skew`` puts
     over half the rows next to centroid 0, and a serial f32 sum over them
     drifts beyond the tolerance by itself (its error is printed).
-    ``time_it`` also times the cluster-sum pass alone and ``index_add_``,
-    the one PyTorch call that forms the same sums."""
+    ``time_it`` also times the cluster-sum pass alone (``_launch_sums``,
+    which holds no host sync; CUDA events here, its device time from
+    ``torch.profiler`` in phase 9, through the returned case) and
+    ``index_add_``, the one PyTorch call that forms the same sums, and
+    logs the route and tiling the pass took. ``ordered``: the sums and
+    counts must equal ``cluster_sums_ordered``'s bit for bit (the dense
+    route's order, in plain PyTorch)."""
     from flechasdb_tpu_torch.ops import lloyd
     dev = "cuda"
     name = ("K-C lloyd_grouped" if grouped else "K-B lloyd_round") \
@@ -631,6 +648,16 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
                                  "not of the bf16-rounded x")
     if ties == 0 and not torch.equal(counts, p_counts):
         raise AssertionError(f"{name} counts differ from the plain version")
+    g = lloyd.GROUP_WIDTH // m if grouped else 1
+    tiling = lloyd.sum_tiling(b, n, k, m, g)
+    if ordered:
+        o_sums, o_counts = lloyd.cluster_sums_ordered(x, idx, k, fast,
+                                                      tiling)
+        require(torch.equal(sums, o_sums) and torch.equal(counts, o_counts),
+                f"{name}: the dense route's sums differ from "
+                "cluster_sums_ordered's")
+        log(f"  {name}: sums and counts bit-equal to cluster_sums_ordered "
+            f"(S={tiling.cols}, R={tiling.rows})")
     ms = plain_ms = kb_ms = float("nan")
     sums_case = None
     if time_it:
@@ -638,21 +665,23 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         plain_ms = cuda_ms(torch, plain, 5)
         if grouped:
             kb_ms = cuda_ms(torch, lambda: lloyd.lloyd_round(x, c), 5)
-            sums_ms = cuda_ms(torch, lambda: lloyd.cluster_sums_grouped(
-                xg, idx, k, m, fast), 5)
-        else:
-            sums_ms = cuda_ms(torch, lambda: lloyd.cluster_sums(
-                x, idx, k, fast), 5)
+        launch = sum_pass(lloyd, xg if grouped else x, idx, k, m, g, fast)
+        sums_ms = cuda_ms(torch, launch, 5)
         sums_plain_ms = cuda_ms(torch, lambda: lloyd.cluster_sums_plain(
             x, idx, k, fast), 5)
         library_ms = cuda_ms(torch, lambda: scatter(xs), 5)
         # x once, idx once; sums and counts written.
         sums_bound = bound(x_bytes + 4 * (b * n + b * k * m + b * k),
                            float(b * n * m))
-        sums_case = (sums_ms, sums_plain_ms, *sums_bound, library_ms)
-        log(f"  cluster_sums pass alone: {sums_ms:.3f} ms  plain "
-            f"{sums_plain_ms:.3f} ms  index_add_ {library_ms:.3f} ms  "
-            f"bound {sums_bound[0]:.3f} ms ({sums_bound[1]})")
+        sums_case = {"name": name, "route": tiling.route,
+                     "tiling": tiling._asdict(), "events_ms": sums_ms,
+                     "plain_ms": sums_plain_ms, "bound": sums_bound,
+                     "library_ms": library_ms, "launch": launch}
+        log(f"  cluster_sums pass alone ({tiling.route} route, "
+            f"S={tiling.cols} R={tiling.rows}): {sums_ms:.3f} ms (CUDA "
+            f"events, no host sync)  plain {sums_plain_ms:.3f} ms  "
+            f"index_add_ {library_ms:.3f} ms  bound {sums_bound[0]:.3f} ms "
+            f"({sums_bound[1]})")
     bms, by = (lloyd_bound(x_bytes, b, n, k, m, BF16_FLOPS,
                            "operations (bf16 tensor cores)") if fast else
                lloyd_bound(x_bytes, b, n, k, m, TF32_FLOPS,
@@ -667,6 +696,90 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         + (f"  K-B on the ungrouped data {kb_ms:.3f} ms" if grouped
            else "") + f"  bound {bms:.3f} ms ({by})")
     return (err64 if skew else err), ms, plain_ms, bms, by, sums_case
+
+
+#: The cluster-sum pass's kernels (``csrc/cluster_sums.cu``): the dense
+#: route's, then the sort route's.
+PASS_KERNELS = ("tile_sums", "combine_tiles", "tile_count", "tile_scan",
+                "cluster_scan", "place", "chunk_sum", "combine")
+
+
+def sum_pass(lloyd, xin, idx, k, m, g, fast):
+    """One cluster-sum pass over ``idx`` as a round launches it
+    (``_launch_sums``: no range check, no host sync)."""
+    b, n = idx.shape
+    return lambda: lloyd._launch_sums(xin, idx, b, n, k, m, g, fast)
+
+
+def pass_device_ms(torch, fn, reps: int = 5) -> dict:
+    """Device time of a pass ``fn``: ``torch.profiler``'s CUDA activity
+    for the pass's kernels over ``reps`` back-to-back calls after a warm
+    one, over the calls it recorded (launches of the route's first
+    kernel): ``ms`` in all and ``by_kernel``. A window that records no
+    launch is profiled again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    longest_first = sorted(PASS_KERNELS, key=len, reverse=True)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = dict.fromkeys(PASS_KERNELS, 0.0)
+        calls = dict.fromkeys(PASS_KERNELS, 0)
+        for e in prof.key_averages():
+            name = next((k for k in longest_first if k in e.key), None)
+            if name:
+                by[name] += getattr(e, "self_device_time_total", None) \
+                    or getattr(e, "self_cuda_time_total", 0)
+                calls[name] += e.count
+        first = calls["tile_sums"] or calls["tile_count"]
+        if first:
+            return {"ms": sum(by.values()) / first / 1e3, "calls": first,
+                    "by_kernel": {k: v / first / 1e3 for k, v in by.items()
+                                  if calls[k]}}
+        log(f"profile window {attempt + 1} recorded no cluster-sum pass; "
+            "profiling again")
+    raise AssertionError("the profiler recorded no cluster-sum pass")
+
+
+def parity_sort_route(torch, gen) -> float:
+    """The pass's sort route, above the dense route's K limit (K=8192 at
+    N=50k, M=8), full and fast: two calls bit-equal, the counts
+    ``bincount``'s, the sums within the tolerance of the f64 sums.
+    Returns the largest error against the plain f32 ``index_add_``."""
+    from flechasdb_tpu_torch.ops import lloyd
+    b, n, k, m = 1, 50_000, 8192, 8
+    require(lloyd.sum_tiling(b, n, k, m, 1).route == "sort",
+            f"K={k} at M={m} does not take the sort route")
+    x = torch.randn((b, n, m), generator=gen, device="cuda")
+    idx = torch.randint(0, k, (b, n), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    flat = idx.long().reshape(-1)
+    worst = 0.0
+    for fast in (False, True):
+        sums, counts = lloyd.cluster_sums(x, idx, k, fast)
+        again = lloyd.cluster_sums(x, idx, k, fast)
+        torch.cuda.synchronize()
+        require(torch.equal(sums, again[0]) and torch.equal(counts, again[1]),
+                "the sort route: two calls differ")
+        xs = (lloyd._bf16(x) if fast else x).reshape(-1, m)
+        want = torch.zeros((k, m), dtype=torch.float64, device="cuda") \
+            .index_add_(0, flat, xs.double())
+        f32 = torch.zeros((k, m), device="cuda").index_add_(0, flat, xs)
+        require(torch.equal(counts[0], torch.bincount(flat, minlength=k)
+                            .float()), "the sort route's counts differ")
+        require(bool(((sums[0].double() - want).abs()
+                      <= SUM_ATOL + SUM_RTOL * want.abs()).all()),
+                "the sort route's sums disagree with the f64 sums")
+        err = float((sums[0] - f32).abs().max())
+        worst = max(worst, err)
+        log(f"cluster_sums sort route B={b} N={n} K={k} M={m}"
+            f"{' fast' if fast else ''}: two calls bit-equal; sums "
+            f"max_abs_err {err:.3g} (plain f32), "
+            f"{float((sums[0].double() - want).abs().max()):.3g} (f64)")
+    return worst
 
 
 def tie_rows(x, c, got, want, what: str, fast: bool = False):
@@ -2251,12 +2364,14 @@ def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
 
 def sums_row(launches, err, case):
     """The cluster-sum pass's row, timed alone after the K-B round at the
-    PQ shape; ``library_ms`` is ``index_add_`` of the same sums (the
-    counts are a ``bincount`` more)."""
-    ms, plain_ms, bms, by, library_ms = case
+    PQ shape: device time (:func:`pass_device_ms`); ``library_ms`` is
+    ``index_add_`` of the same sums (the counts are a ``bincount``
+    more)."""
     out = row("cluster_sums", "cuda", SRC_S, REPLACES["sums"], launches,
-              err, ms, plain_ms, bms, by)
-    out["library_ms"] = library_ms
+              err, case["ms"], case["plain_ms"], *case["bound"],
+              "torch.profiler, device time a pass, back to back",
+              sum_route=case["route"], events_ms=case["events_ms"])
+    out["library_ms"] = case["library_ms"]
     return out
 
 
@@ -2286,7 +2401,7 @@ def main() -> None:
                parity_scan(torch, gen, 64, 1024, False, l=1152)]
     lookup = parity_lookup(torch, gen)
     b_cases = [parity_lloyd(torch, gen, 1, N, P, M),
-               parity_lloyd(torch, gen, D, N, C, M // D),
+               parity_lloyd(torch, gen, D, N, C, M // D, ordered=True),
                parity_lloyd(torch, gen, 1, 65_536, 1024, 128),
                parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M),
                parity_lloyd(torch, gen, D, N, C, M // D, dup=True,
@@ -2297,7 +2412,8 @@ def main() -> None:
                             CLI_M // CLI_D, time_it=False),
                parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M,
                             skew=True)]
-    c_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True),
+    c_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True,
+                            ordered=True),
                parity_lloyd(torch, gen, 60, N, C, 16, grouped=True,
                             time_it=False),
                parity_lloyd(torch, gen, 16, N, C, 8, grouped=True,
@@ -2307,14 +2423,15 @@ def main() -> None:
                parity_lloyd(torch, gen, 8, N, C, 16, dup=True, grouped=True,
                             time_it=False)]
     bf_cases = [parity_lloyd(torch, gen, 1, N, P, M, fast=True),
-                parity_lloyd(torch, gen, D, N, C, M // D, fast=True),
+                parity_lloyd(torch, gen, D, N, C, M // D, fast=True,
+                             ordered=True),
                 parity_lloyd(torch, gen, 1, 65_536, 1024, 128, fast=True),
                 parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M,
                              fast=True),
                 parity_lloyd(torch, gen, D, N, C, M // D, dup=True,
                              time_it=False, fast=True)]
     cf_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True,
-                             fast=True),
+                             fast=True, ordered=True),
                 parity_lloyd(torch, gen, 16, N, C, 8, grouped=True,
                              time_it=False, fast=True),
                 parity_lloyd(torch, gen, 4, N, C, 32, grouped=True,
@@ -2323,6 +2440,7 @@ def main() -> None:
                              time_it=False, fast=True),
                 parity_lloyd(torch, gen, 8, N, C, 16, dup=True, grouped=True,
                              time_it=False, fast=True)]
+    sort_err = parity_sort_route(torch, gen)
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
@@ -2357,7 +2475,17 @@ def main() -> None:
     a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
-    log(f"phase 9 (K-A times): {time.perf_counter() - t0:.3f} s")
+    lloyd_cases = b_cases + c_cases + bf_cases + cf_cases
+    for case in (e[5] for e in lloyd_cases if e[5]):
+        case.update(pass_device_ms(torch, case.pop("launch")))
+        log(f"cluster-sum pass, {case['name']} ({case['route']} route): "
+            f"{case['ms']:.4f} ms device a pass ({case['calls']} profiled; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in case["by_kernel"].items())
+            + f"), CUDA events {case['events_ms']:.4f} ms, bound "
+            f"{case['bound'][0]:.4f} ms, index_add_ "
+            f"{case['library_ms']:.4f} ms")
+    log(f"phase 9 (K-A and cluster-sum pass times): "
+        f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2383,7 +2511,7 @@ def main() -> None:
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
             *cf_cases[0][1:5]),
         sums_row(launches["cluster_sums"],
-                 max(e[0] for e in b_cases + c_cases + bf_cases + cf_cases),
+                 max([e[0] for e in lloyd_cases] + [sort_err]),
                  b_cases[1][5]),
     ]
     log(f"total: {time.perf_counter() - t_all:.3f} s")

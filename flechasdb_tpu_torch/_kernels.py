@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launches`; the
 #: fast_math variants of K-B and K-C count under their own keys, and the
 #: cluster-sum pass that follows each of their rounds under
-#: ``cluster_sums``.
+#: ``cluster_sums``, once a pass whichever route ran.
 LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
             "lloyd_grouped": 0, "lloyd_round_fast": 0,
             "lloyd_grouped_fast": 0, "cluster_sums": 0}
@@ -109,6 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fdb_cluster_sums.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                      p]
     lib.fdb_cluster_sums.restype = i
+    lib.fdb_cluster_sums_dense.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, i, i, i, p]
+    lib.fdb_cluster_sums_dense.restype = i
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.fdb_cluster_sums_scratch.argtypes = [i, i, i, i, ll, ll]
     lib.fdb_cluster_sums_scratch.restype = None

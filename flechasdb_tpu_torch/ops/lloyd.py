@@ -20,11 +20,16 @@ what bounds the kernel and how its design answers is at the top of
 ``csrc/lloyd_round.cu``.
 
 :func:`cluster_sums` adds each cluster's rows in an order that the
-assignment alone fixes (its rows in ascending order, in fixed chunks,
-the chunks in order; no float atomics), so a round on the card returns
-the same bits every time it gets the same inputs, and two builds with
-the same seed are equal. The sums differ from the plain version's serial
-``index_add_`` only by that order; the counts are exact.
+assignment and the shape alone fix (no float atomics), so a round on the
+card returns the same bits every time it gets the same inputs, on any
+card, and two builds with the same seed are equal. Two CUDA routes, picked
+by :func:`sum_tiling` from the shape before the launch: the dense route
+adds each tile of rows into tile-private sums (the rows of a tile in
+ascending order into each cluster) and then the tiles in order, which
+:func:`cluster_sums_ordered` models in plain PyTorch bit for bit; above
+its K limit the sort route sorts the rows by cluster and adds fixed
+chunks. The sums differ from the plain version's serial ``index_add_``
+only by that order; the counts are exact.
 
 :func:`lloyd_round_grouped` keeps the contract of the JAX package's
 ``pallas_kmeans.lloyd_round_grouped``: ``xg [G, N, 128]`` from
@@ -50,6 +55,7 @@ computes the same function.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -111,27 +117,149 @@ def cluster_sums_plain(x: torch.Tensor, idx: torch.Tensor, k: int,
     return sums.reshape(b, k, m), counts.reshape(b, k)
 
 
+#: A block's shared memory on the H100, and the part of it the dense
+#: route's ``[K, S]`` accumulator may take.
+_SMEM_MAX = 232_448
+_ACC_MAX = 160 << 10
+#: The dense route's ring of stages and warps a block
+#: (``csrc/cluster_sums.cu``: kStages, kDenseWarps).
+_STAGES, _WARPS = 4, 8
+#: The partials may take a tenth of x's bytes, or this many.
+_PART_FLOOR = 16 << 20
+
+
+class SumTiling(NamedTuple):
+    """How the cluster-sum pass runs on a shape (:func:`sum_tiling`).
+    ``route`` is ``"dense"`` or ``"sort"``; the dense route's block takes
+    ``rows`` rows (``R``) of ``cols`` columns (``S``) through stages of
+    ``stage_rows`` rows, in ``smem`` bytes of shared memory."""
+    route: str
+    cols: int = 0
+    rows: int = 0
+    stage_rows: int = 0
+    smem: int = 0
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def _dense_smem(k: int, s: int, g: int, stage_rows: int) -> int:
+    """Bytes of a dense block (``dense_layout`` in the CUDA source):
+    accumulator, counts, the stages of x and idx, a row list for each of
+    ``_WARPS`` warps, the ring slots' two barriers."""
+    return (_align16(k * s * 4) + _align16(g * k * 4)
+            + _align16(_STAGES * stage_rows * s * 4)
+            + _align16(_STAGES * stage_rows * g * 4)
+            + _align16(_WARPS * stage_rows * 4) + _align16(2 * _STAGES * 8))
+
+
+def sum_tiling(b: int, n: int, k: int, m: int, g: int) -> SumTiling:
+    """The cluster-sum pass's route and tiling for ``b`` divisions of
+    ``n`` rows of width ``m``, ``g`` of them side by side in a row
+    (K-C's grouped rows; 1 for K-B), over ``k`` clusters. A pure function
+    of its arguments (no device query), so the order of the adds, and so
+    the bits, are the same on every card. ``S``: the accumulator, ``K·S``
+    floats, within ``_ACC_MAX``, and at most 128 columns (K-C: the whole
+    128-float row); ``R``: the
+    smallest power of two from 256 whose partials, ``B·T·K·m`` floats,
+    stay within a tenth of x or ``_PART_FLOOR`` bytes; the stage rows: the
+    largest power of two up to 256 (about 16 KB of x a stage) that fits
+    the block. Where no ``S >= 8`` fits, the sort route."""
+    if g > 1:
+        s = GROUP_WIDTH if k * GROUP_WIDTH * 4 <= _ACC_MAX else 0
+    else:
+        cap = min(128, _ACC_MAX // (4 * k))
+        step = 32 if cap >= 32 else 8
+        s = m if m <= cap else cap // step * step
+    if s == 0:
+        return SumTiling("sort")
+    stage = min(256, max(8, 1 << (16384 // (4 * s)).bit_length() - 1))
+    while stage > 8 and _dense_smem(k, s, g, stage) > _SMEM_MAX:
+        stage //= 2
+    if _dense_smem(k, s, g, stage) > _SMEM_MAX:
+        return SumTiling("sort")
+    budget = max(b * n * m * 4 // 10, _PART_FLOOR)
+    r = 256
+    while r < n and -(-n // r) * b * k * m * 4 > budget:
+        r *= 2
+    return SumTiling("dense", s, r, stage, _dense_smem(k, s, g, stage))
+
+
+def cluster_sums_ordered(x: torch.Tensor, idx: torch.Tensor, k: int,
+                         fast_math: bool, tiling: SumTiling,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense route's sums in its order, in plain PyTorch: for each
+    tile of ``tiling.rows`` rows, its rows in ascending order into each
+    cluster from 0, then the tiles' sums added in tile order from 0; the
+    counts by ``bincount``. ``x [B, N, M]`` (K-C's divisions ungrouped)
+    and ``idx [B, N]`` as :func:`cluster_sums_plain`. Vectorised over the
+    tiles, one row position a step: each step adds at most once to a
+    sum, so every add is one f32 add in that order. For tests and
+    ``chip_smoke.py``; no path calls it."""
+    if tiling.route != "dense":
+        raise ValueError("cluster_sums_ordered models the dense route")
+    b, n, m = x.shape
+    r = tiling.rows
+    t = -(-n // r)
+    if fast_math:
+        x = _bf16(x)
+    pad = t * r - n
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(b * t, r, m)
+    # A padded row goes to cluster k, one past the last, and is dropped.
+    ip = torch.nn.functional.pad(idx.long(), (0, pad), value=k) \
+        .reshape(b * t, r)
+    ip = ip + (k + 1) * torch.arange(b * t, device=x.device)[:, None]
+    part = torch.zeros((b * t * (k + 1), m), dtype=torch.float32,
+                       device=x.device)
+    for p in range(r):
+        at = ip[:, p]
+        part[at] = part[at] + xp[:, p]
+    part = part.reshape(b, t, k + 1, m)[:, :, :k]
+    sums = torch.zeros((b, k, m), dtype=torch.float32, device=x.device)
+    for tt in range(t):
+        sums = sums + part[:, tt]
+    flat = (idx.long() + k * torch.arange(b, device=x.device)[:, None]
+            ).reshape(-1)
+    counts = torch.bincount(flat, minlength=b * k).reshape(b, k)
+    return sums, counts.to(torch.float32)
+
+
 def _launch_sums(x: torch.Tensor, idx: torch.Tensor, b: int, n: int, k: int,
                  m: int, g: int, fast_math: bool,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launches the cluster-sum pass on ``b`` divisions of ``n`` rows:
     division ``j`` starts at float ``(j // g)·n·rs + (j % g)·m`` of ``x``,
-    its rows ``rs = x.shape[-1]`` floats apart. Allocates its outputs and
-    its scratch."""
+    its rows ``rs = x.shape[-1]`` floats apart, on the route
+    :func:`sum_tiling` picks. Allocates its outputs and its scratch, and
+    never waits on the device."""
     lib = _kernels.load()
-    ints, floats = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.fdb_cluster_sums_scratch(b, n, k, m, ctypes.byref(ints),
-                                 ctypes.byref(floats))
+    tiling = sum_tiling(b, n, k, m, g)
     dev = x.device
     sums = torch.empty((b, k, m), dtype=torch.float32, device=dev)
     counts = torch.empty((b, k), dtype=torch.float32, device=dev)
-    iwork = torch.empty(ints.value, dtype=torch.int32, device=dev)
-    fwork = torch.empty(floats.value, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.fdb_cluster_sums(
-            x.data_ptr(), idx.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            iwork.data_ptr(), fwork.data_ptr(), b, n, k, m, g, x.shape[-1],
-            int(fast_math), _kernels.stream_of(x))
+        if tiling.route == "dense":
+            t = -(-n // tiling.rows)
+            part = torch.empty(b * t * k * m, dtype=torch.float32,
+                               device=dev)
+            pcnt = torch.empty(b * t * k, dtype=torch.int32, device=dev)
+            rc = lib.fdb_cluster_sums_dense(
+                x.data_ptr(), idx.data_ptr(), sums.data_ptr(),
+                counts.data_ptr(), part.data_ptr(), pcnt.data_ptr(), b, n,
+                k, m, g, x.shape[-1], int(fast_math), tiling.cols,
+                tiling.rows, tiling.stage_rows, _kernels.stream_of(x))
+        else:
+            ints, floats = ctypes.c_longlong(), ctypes.c_longlong()
+            lib.fdb_cluster_sums_scratch(b, n, k, m, ctypes.byref(ints),
+                                         ctypes.byref(floats))
+            iwork = torch.empty(ints.value, dtype=torch.int32, device=dev)
+            fwork = torch.empty(floats.value, dtype=torch.float32,
+                                device=dev)
+            rc = lib.fdb_cluster_sums(
+                x.data_ptr(), idx.data_ptr(), sums.data_ptr(),
+                counts.data_ptr(), iwork.data_ptr(), fwork.data_ptr(), b, n,
+                k, m, g, x.shape[-1], int(fast_math), _kernels.stream_of(x))
     _kernels.check(rc, "cluster_sums")
     _kernels.LAUNCHES["cluster_sums"] += 1
     return sums, counts

@@ -18,9 +18,13 @@ tree's sums must lie within ``chip_smoke.SUM_RTOL`` / ``SUM_ATOL`` of the
 f64 sums (for the other tree that is recorded, as is whether a second
 call returns the same bits: a tree that adds with float atomics may
 not). Times are ``chip_smoke.cuda_ms``: CUDA-event
-means over back-to-back warm calls, median of five. For this tree the
-cluster-sum pass is also timed alone, and ``torch.profiler`` splits its
-device time over its six kernels. One line per run is printed and all are
+means over back-to-back warm calls, median of five. In every turn the
+cluster-sum pass is also timed alone on this tree's assignment, as the
+rounds launch it (each tree's ``_launch_sums``: no host sync), by its
+device time (``chip_smoke.pass_device_ms``: ``torch.profiler`` over
+back-to-back calls, split over the pass's kernels: the dense route's
+``tile_sums`` and ``combine_tiles``, or the sort route's six), with the
+route this tree's ``sum_tiling`` picks. A line a run is printed and all are
 written to ``--out`` (default ``chiprun_out/profile_lloyd.json``).
 """
 
@@ -98,30 +102,6 @@ def run(torch, lloyd, this, x, xg, c, grouped, fast, mine: bool) -> dict:
             "max_abs_err_f64": err, "within_tolerance": within}
 
 
-PASS_KERNELS = ("tile_count", "tile_scan", "cluster_scan", "place",
-                "chunk_sum", "combine")
-
-
-def pass_breakdown(torch, fn, reps: int = 5) -> dict:
-    """Device ms a call of each of the pass's kernels (``torch.profiler``
-    over ``reps`` calls after a warm one)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(PASS_KERNELS, 0.0)
-    for e in prof.key_averages():
-        for name in PASS_KERNELS:
-            if name in e.key:
-                out[name] += (getattr(e, "self_device_time_total", None)
-                              or getattr(e, "self_cuda_time_total", 0)
-                              ) / reps / 1e3
-    return out
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="a tree whose Lloyd rounds run beside "
@@ -163,25 +143,25 @@ def main() -> None:
                    f"{'' if r['within_tolerance'] else ' (over the tolerance)'}")
         idx = (lloyd.lloyd_round_grouped(xg, c, fast)[0] if grouped
                else lloyd.lloyd_round(x, c, fast)[0])
-        if grouped:
-            def sums():
-                return lloyd.cluster_sums_grouped(xg, idx, k, m, fast)
-        else:
-            def sums():
-                return lloyd.cluster_sums(x, idx, k, fast)
+        g = lloyd.GROUP_WIDTH // m if grouped else 1
+        tiling = lloyd.sum_tiling(b, n, k, m, g)
         sbound = cs.bound(x_bytes + 4 * (b * n + b * k * m + b * k),
                           float(b * n * m))
-        r = {"shape": label, "tree": "this", "part": "cluster_sums",
-             "ms": cs.cuda_ms(torch, sums, 5), "bound_ms": sbound[0],
-             "bound_by": sbound[1]}
-        records.append(r)
-        cs.log(f"{label} [this] cluster-sum pass alone: {r['ms']:.3f} ms, "
-               f"bound {sbound[0]:.3f} ms ({sbound[1]})")
-        split = pass_breakdown(torch, sums)
-        records.append({"shape": label, "tree": "this",
-                        "part": "cluster_sums kernels", "ms_by_kernel": split})
-        cs.log(f"{label} [this] the pass's kernels (torch.profiler, ms a "
-               "call): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        for turn, (tree, mod) in enumerate(trees):
+            r = cs.pass_device_ms(torch, cs.sum_pass(
+                mod, xg if grouped else x, idx, k, m, g, fast))
+            r.update(shape=label, tree=tree, turn=turn,
+                     part="cluster_sums", bound_ms=sbound[0],
+                     bound_by=sbound[1],
+                     route=tiling.route if tree == "this" else "other")
+            records.append(r)
+            cs.log(f"{label} [{tree}] cluster-sum pass alone: "
+                   f"{r['ms']:.4f} ms device ({r['route']} route"
+                   + (f", S={tiling.cols} R={tiling.rows}"
+                      if tree == "this" else "")
+                   + f"), bound {sbound[0]:.4f} ms ({sbound[1]}); by kernel "
+                   + ", ".join(f"{kn} {v:.4f}"
+                               for kn, v in r["by_kernel"].items()))
         del x, xg, c, idx
         torch.cuda.empty_cache()
     out = Path(args.out)

@@ -9,11 +9,25 @@ step, in f64; sums within rtol 1e-4, atol 1e-3, the JAX test's bound,
 counts equal), the grouped wrapper equal to the ungrouped one, the
 ``fast_math`` sums of the bf16-rounded rows, and the checks.
 
-The ``cuda``-marked tests skip here. On the card, each of K-B, K-B fast,
+The dense route's order model, ``cluster_sums_ordered`` (each tile's rows
+in ascending order into their clusters, then the tiles in order), equals
+a float32 serial loop in numpy in that order bit for bit, for the K-B
+layout and K-C's grouped layout at m = 8, 16, 32 and 64, ``fast_math``, a
+skewed cluster, N not a multiple of R and empty clusters, and lies within
+the tolerance of the f64 sums. The tiling picker (``sum_tiling``) keeps
+every shape within a block's 227 KB and the partials' budget, gives the
+same answer whatever the process's CUDA state, and takes the sort route
+above the dense route's K limit.
+
+The ``cuda``-marked tests skip here. On the card, the dense route equals
+``cluster_sums_ordered`` bit for bit over every copy path (full and fast,
+both layouts), the sort route runs above the limit within the f64
+tolerance, a Lloyd round (K-B, K-C, full and fast) makes no host sync
+(``torch.cuda.set_sync_debug_mode("error")``), and each of K-B, K-B fast,
 K-C and K-C fast, called twice on the same inputs, must return the same
 ``idx``, ``sums`` and ``counts`` bit for bit (many rows a cluster, a
-cluster holding over half the rows, and K=4096 at m=16, where the pass's
-counters live in its scratch instead of shared memory); the pass's sums
+cluster holding over half the rows, and K=4096 at m=16, on the sort route,
+whose counters live in its scratch); the pass's sums
 lie within the tolerance of the f64 sums and its counts equal them; and
 two same-seed card builds at a SIFT-coarse-like shape (200,000 x 128,
 P=1024, D=8, C=256), at full precision and with ``with_fast_math()``, are
@@ -234,3 +248,238 @@ def test_same_seed_card_builds_are_equal(cuda, fast):
                  "codes", "residues"):
         np.testing.assert_array_equal(getattr(one, name), getattr(two, name),
                                       err_msg=name)
+
+
+# --- the dense route's order and tiling --------------------------------------
+
+def _numpy_ordered(x, idx, k, rows):
+    """The dense route's order as a float32 serial loop: each tile's rows
+    in ascending order into their clusters from 0, then the tiles in
+    order from 0."""
+    b, n, m = x.shape
+    sums = np.zeros((b, k, m), np.float32)
+    for bb in range(b):
+        for t0 in range(0, n, rows):
+            part = np.zeros((k, m), np.float32)
+            for i in range(t0, min(n, t0 + rows)):
+                part[idx[bb, i]] = part[idx[bb, i]] + x[bb, i]
+            sums[bb] = sums[bb] + part
+    return sums
+
+
+def _ordered_case(case):
+    """(x, idx, k, g, fast) for a named case; g = 128 // m for K-C's
+    division-grouped layout (x ungrouped from the grouped rows)."""
+    b, n, m, k, g, fast, skew, empty = {
+        "kb": (3, 700, 24, 9, 1, False, False, False),
+        "kb_fast": (2, 600, 40, 7, 1, True, False, False),
+        "kb_skew": (2, 900, 16, 12, 1, False, True, False),
+        "kb_ragged": (1, 1283, 8, 5, 1, False, False, False),
+        "kb_empty": (2, 520, 12, 30, 1, False, False, True),
+        "kc_m8": (16, 530, 8, 11, 16, False, False, False),
+        "kc_m16": (10, 530, 16, 11, 8, False, False, False),
+        "kc_m32": (4, 530, 32, 11, 4, True, False, False),
+        "kc_m64": (3, 530, 64, 11, 2, False, True, True),
+    }[case]
+    x, idx = _assignment(b, n, m, k, n * m + k, skew)
+    if empty:
+        idx[idx % 3 == 1] = 0            # a third of the clusters empty
+    if g > 1:
+        xg = lloyd.regroup_divisions(torch.from_numpy(x))
+        x = lloyd._ungroup(xg, b, m).numpy()
+    return x, idx, k, g, fast
+
+
+ORDERED_CASES = ["kb", "kb_fast", "kb_skew", "kb_ragged", "kb_empty",
+                 "kc_m8", "kc_m16", "kc_m32", "kc_m64"]
+
+
+@pytest.mark.parametrize("case", ORDERED_CASES)
+def test_ordered_sums_equal_a_serial_f32_loop(case):
+    x, idx, k, g, fast = _ordered_case(case)
+    b, n, m = x.shape
+    tiling = lloyd.sum_tiling(b, n, k, m, g)
+    assert tiling.route == "dense" and n > tiling.rows
+    sums, counts = lloyd.cluster_sums_ordered(
+        torch.from_numpy(x), torch.from_numpy(idx), k, fast, tiling)
+    xr = torch.from_numpy(x).to(torch.bfloat16).float().numpy() if fast \
+        else x
+    want = _numpy_ordered(xr, idx, k, tiling.rows)
+    np.testing.assert_array_equal(sums.numpy(), want)
+    assert sums.dtype == counts.dtype == torch.float32
+    # Within the tolerance of the f64 sums; counts equal bincount's.
+    want64, want_counts = _numpy_sums(xr, idx, k)
+    np.testing.assert_allclose(sums.numpy(), want64, rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    if case.endswith("empty"):
+        assert (counts.numpy() == 0).any()
+        assert (sums.numpy()[counts.numpy() == 0] == 0).all()
+
+
+def test_ordered_sums_model_the_dense_route_only():
+    x, idx = _assignment(1, 50, 8, 8192, 1)
+    tiling = lloyd.sum_tiling(1, 50, 8192, 8, 1)
+    assert tiling.route == "sort"
+    with pytest.raises(ValueError):
+        lloyd.cluster_sums_ordered(torch.from_numpy(x),
+                                   torch.from_numpy(idx), 8192, False,
+                                   tiling)
+
+
+# (B, N, K, m, g): the chip's shapes, the card tests' and the limits.
+TILING_SHAPES = {
+    "kb_pq": (12, 100_000, 256, 128, 1),
+    "headline_coarse": (1, 100_000, 100, 1536, 1),
+    "sift_coarse": (1, 1_000_000, 1024, 128, 1),
+    "kc_sift_pq": (8, 1_000_000, 256, 16, 8),
+    "k1024": (1, 65_536, 1024, 128, 1),
+    "kc_m8": (16, 100_000, 256, 8, 16),
+    "kc_m64_k300": (2, 100_000, 300, 64, 2),
+    "kb_k5000": (3, 999, 5000, 100, 1),
+    "cli_coarse": (1, 5000, 10, 1024, 1),
+    "tiny": (1, 37, 3, 7, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TILING_SHAPES))
+def test_dense_tiling_fits_the_block_and_the_partials_budget(shape):
+    b, n, k, m, g = TILING_SHAPES[shape]
+    t = lloyd.sum_tiling(b, n, k, m, g)
+    assert t.route == "dense"
+    assert t.smem == lloyd._dense_smem(k, t.cols, g, t.stage_rows) \
+        <= 232_448
+    assert k * t.cols * 4 <= lloyd._ACC_MAX
+    assert t.cols == (128 if g > 1 else min(m, t.cols)) and t.cols >= 1
+    assert t.rows & (t.rows - 1) == 0 and t.rows % t.stage_rows == 0
+    tiles = -(-n // t.rows)
+    part = tiles * b * k * m * 4
+    assert part <= max(b * n * m * 4 // 10, 16 << 20) or tiles == 1
+    if t.rows > 256:                      # R is the smallest that fits
+        assert -(-n // (t.rows // 2)) * b * k * m * 4 \
+            > max(b * n * m * 4 // 10, 16 << 20)
+
+
+def test_tiling_at_the_chip_shapes():
+    want = {"kb_pq": (128, 4096), "headline_coarse": (128, 1024),
+            "sift_coarse": (32, 16384), "kc_sift_pq": (128, 4096),
+            "k1024": (32, 2048)}
+    for shape, (s, r) in want.items():
+        t = lloyd.sum_tiling(*TILING_SHAPES[shape])
+        assert (t.cols, t.rows) == (s, r), shape
+
+
+@pytest.mark.parametrize("b,n,k,m,g", [(1, 50_000, 8192, 8, 1),
+                                       (1, 1000, 5121, 128, 1),
+                                       (4, 50_000, 4096, 16, 8),
+                                       (8, 1000, 321, 16, 8)])
+def test_tiling_takes_the_sort_route_above_the_limit(b, n, k, m, g):
+    assert lloyd.sum_tiling(b, n, k, m, g).route == "sort"
+    below = lloyd.sum_tiling(b, n, 5120 if g == 1 else 320, m, g)
+    assert below.route == "dense"
+
+
+def test_tiling_reads_no_device_state(monkeypatch):
+    before = {s: lloyd.sum_tiling(*v) for s, v in TILING_SHAPES.items()}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the tiling asked the CUDA runtime")
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device", "get_device_capability"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    after = {s: lloyd.sum_tiling(*v) for s, v in TILING_SHAPES.items()}
+    assert after == before
+
+
+@pytest.mark.parametrize("case", ["grouped_high", "plain_low"])
+def test_public_sums_raise_on_idx_out_of_range(case):
+    x, idx = _assignment(2, 30, 16, 4, 3)
+    xt, it = torch.from_numpy(x), torch.from_numpy(idx)
+    with pytest.raises(ValueError, match=r"idx must lie in \[0, "):
+        if case == "grouped_high":
+            lloyd.cluster_sums_grouped(lloyd.regroup_divisions(xt), it, 3,
+                                       16)
+        else:
+            lloyd.cluster_sums(xt, it - 1, 4)
+
+
+# --- the dense route on the card ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ORDERED_CASES + ["kb_k1024", "kb_wide",
+                                                  "kb_unaligned",
+                                                  "kb_odd_width",
+                                                  "kc_unaligned"])
+def test_dense_route_equals_the_order_model_bit_for_bit(cuda, case):
+    """Every copy path: a whole-row stage (one bulk copy), a slice of the
+    rows (a 2-D tensor copy; ``kb_wide``, ``kb_k1024``, at a ragged N) and
+    x off 16 bytes (4-byte copies, both layouts)."""
+    if case.startswith("kb_") and case not in ORDERED_CASES:
+        b, n, m, k = {"kb_k1024": (1, 5000, 128, 1024),
+                      "kb_wide": (2, 3001, 1536, 37),
+                      "kb_unaligned": (3, 900, 64, 20),
+                      "kb_odd_width": (2, 1100, 7, 6)}[case]
+        x, idx = _assignment(b, n, m, k, b + n + m + k, skew=True)
+        g, fast = 1, False
+    else:
+        x, idx, k, g, fast = _ordered_case(
+            "kc_m16" if case == "kc_unaligned" else case)
+    b, n, m = x.shape
+    xt = torch.from_numpy(x).to(cuda)
+    if case == "kb_unaligned":           # x 4 bytes off 16: 4-byte copies
+        xt = torch.empty(xt.numel() + 1, device=cuda)[1:].view(b, n, m) \
+            .copy_(xt)
+        assert xt.data_ptr() % 16
+    it = torch.from_numpy(idx).to(cuda)
+    tiling = lloyd.sum_tiling(b, n, k, m, g)
+    assert tiling.route == "dense"
+    for full in (not fast, fast) if case == "kb" else (fast,):
+        _kernels.reset_launches()
+        if g > 1:
+            xg = lloyd.regroup_divisions(xt)
+            if case == "kc_unaligned":
+                xg = torch.empty(xg.numel() + 1, device=cuda)[1:] \
+                    .view(xg.shape).copy_(xg)
+                assert xg.data_ptr() % 16
+            got = _equal_twice(
+                lambda: lloyd.cluster_sums_grouped(xg, it, k, m, full))
+        else:
+            got = _equal_twice(lambda: lloyd.cluster_sums(xt, it, k, full))
+        assert _kernels.LAUNCHES["cluster_sums"] == 2
+        want = lloyd.cluster_sums_ordered(xt, it, k, full, tiling)
+        assert torch.equal(got[0], want[0]), case
+        assert torch.equal(got[1], want[1]), case
+
+
+@pytest.mark.cuda
+def test_sort_route_above_the_limit_on_card(cuda):
+    b, n, k, m = 1, 50_000, 8192, 8
+    assert lloyd.sum_tiling(b, n, k, m, 1).route == "sort"
+    gen = torch.Generator("cuda").manual_seed(8)
+    x = torch.randn((b, n, m), generator=gen, device=cuda)
+    idx = torch.randint(0, k, (b, n), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    for fast in (False, True):
+        sums, counts = _equal_twice(
+            lambda: lloyd.cluster_sums(x, idx, k, fast))
+        _held_to_f64(x, idx, sums, counts, k, fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_lloyd_round_makes_no_host_sync(cuda, fast, grouped):
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((8, 20_000, 16), generator=gen, device=cuda)
+    c = x[:, :256].contiguous()
+    xg = lloyd.regroup_divisions(x)
+    lloyd.lloyd_round(x, c, fast)             # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = (lloyd.lloyd_round_grouped(xg, c, fast) if grouped
+               else lloyd.lloyd_round(x, c, fast))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[0].shape == (8, 20_000) and out[1].shape == (8, 256, 16)
