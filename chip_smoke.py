@@ -30,11 +30,18 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ungrouped data (both rank with the same 3xTF32 tensor-core product in
    the same order, so the rows that differ are expected to be 0; the
    check allows near-ties). The fast_math variants of K-B and K-C (one
-   bf16 tensor-core pass) against their plain fast versions: K-B fast at
-   K-B's first four shapes and with duplicated centroids, K-C fast at the SIFT
-   PQ shape, m=8, m=32, m=64 (K=300) and duplicated centroids; ties
-   measured on the bf16-rounded operands, sums against sums of the
-   bf16-rounded x, which the sums of the f32 x must miss. Each Lloyd
+   bf16 tensor-core pass) against their plain fast versions: K-B fast
+   (``csrc/lloyd_round_fast.cu``, ``wgmma`` fed by the TMA) at K-B's
+   first four shapes, with duplicated centroids (copies of centroid 3 at
+   7, 200 and K-1, other tiles) at the PQ shape and at K=1024, and at
+   its edges: M=256 and M=264 (chunked, as every band over 128 columns;
+   M=264 with K=257, past a tile pair), K=257 at M=128, and one row
+   (N=1); its
+   tiling (``ops.lloyd.fast_tiling``) is printed at each shape. K-C fast
+   at the SIFT PQ shape, m=8, m=32, m=64 (K=300) and duplicated
+   centroids; ties measured on the bf16-rounded operands, sums against
+   sums of the bf16-rounded x, which the sums of the f32 x must miss
+   (where there are 1000 rows or more). Each Lloyd
    round is K-B's or K-C's assignment followed by the cluster-sum pass
    (``csrc/cluster_sums.cu``), which adds every sum in an order fixed by
    the assignment: each kernel is called twice on the same inputs and
@@ -44,7 +51,9 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    one skewed K-B case at the SIFT coarse shape (over half the rows next
    to one centroid), whose serial f32 ``index_add_`` drifts past the
    tolerance by itself (both errors are printed). The kernels'
-   ``ptxas`` registers and spills are printed for each K-C instance.
+   ``ptxas`` registers and spills are printed for each K-C and K-B fast
+   instance (K-B fast's must not spill), with ptxas's performance
+   warnings about K-B fast.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C; at each timed shape the cluster-sum pass
@@ -195,7 +204,12 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ``torch.profiler`` has not run in the process while they were timed.
    The pass: its device time a call at each of phase 1's timed shapes
    (``torch.profiler``'s CUDA activity for its kernels over back-to-back
-   calls), split over its kernels. K-A: at phase 1's six shapes and at
+   calls), split over its kernels. K-B fast's assignment alone at its
+   four timed shapes: the device time of one ``assign_fast_kernel``
+   launch (``torch.profiler`` over back-to-back calls of
+   ``ops.lloyd._assign_fast``, which stages the centroids and launches
+   it), against its bound (x and the centroids read once, idx written,
+   2·B·N·K·M bf16 operations). K-A: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
@@ -219,7 +233,9 @@ cluster-sum pass (the sum halves of the two Lloyd kernels; its
 ``library_ms`` is ``index_add_`` of the same sums), with its
 counterpart's launches over the paths (phases 2 to 8), its time
 (``ms_by`` names the method; K-A's rows
-also carry ``warm_ms`` and ``host_ms``), its plain version's and its
+also carry ``warm_ms`` and ``host_ms``; K-B fast's ``assign_ms`` and
+``assign_bound_ms``, its assignment alone at the PQ shape), its plain
+version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
 published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; their
@@ -268,6 +284,7 @@ F64_N, F64_P = 20_000, 100
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
+SRC_BF = "flechasdb_tpu_torch/csrc/lloyd_round_fast.cu"
 SRC_C = "flechasdb_tpu_torch/csrc/lloyd_grouped.cu"
 SRC_S = "flechasdb_tpu_torch/csrc/cluster_sums.cu"
 REPLACES = {
@@ -452,14 +469,20 @@ def setup(torch):
         f"{route}; build + load {time.perf_counter() - t0:.3f} s")
     if _kernels.build_log:
         log(_kernels.build_log.strip())
-        for line in grouped_ptxas(_kernels.build_log):
+        for line in kernel_ptxas(_kernels.build_log):
             log(line)
+            require(not line.startswith("K-B fast ptxas KS")
+                    or ", 0 bytes spill stores" in line,
+                    f"K-B fast spills registers: {line}")
 
 
-def grouped_ptxas(build_log: str) -> list:
-    """One line per K-C instance (its subvector width M, and whether it is
-    the fast_math variant) from ``ptxas -v``: registers, stack frame and
-    spills."""
+def kernel_ptxas(build_log: str) -> list:
+    """From ``ptxas -v``: a line per K-C instance (its subvector width M,
+    and whether it is the fast_math variant) and per K-B fast instance
+    (k16 steps a chunk, chunked or resident):
+    registers, stack frame and spills; K-B fast's shared memory is
+    dynamic (``ops.lloyd.fast_tiling``'s ``smem``, printed at each shape).
+    Then each of ptxas's performance warnings about K-B fast."""
     out, name, frame = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -468,14 +491,22 @@ def grouped_ptxas(build_log: str) -> list:
         elif name and "spill" in line:
             frame = line.strip()
         elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            regs = regs.group(1) if regs else "?"
             w = re.search(r"grouped_round_kernelILi(\d+)ELb([01])E", name)
+            f = re.search(r"assign_fast_kernelILi(\d+)ELb([01])E", name)
             if w:
-                regs = re.search(r"Used (\d+) registers", line)
                 out.append(f"K-C ptxas M={w.group(1)}"
                            f"{' fast' if w.group(2) == '1' else ''}: "
-                           f"{regs.group(1) if regs else '?'} registers, "
-                           f"{frame}")
+                           f"{regs} registers, {frame}")
+            elif f:
+                out.append(f"K-B fast ptxas KS={f.group(1)} "
+                           f"{'chunked' if f.group(2) == '1' else 'resident'}"
+                           f": {regs} registers at entry (setmaxnreg: "
+                           f"consumers 152, producer 40), {frame}")
             name = None
+        elif "assign_fast_kernel" in line and "Performance" in line:
+            out.append("K-B fast ptxas warning: " + line.strip())
     return out
 
 
@@ -578,9 +609,10 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         crowd = n // 2 + n // 8
         x[:, :crowd] = c[:, :1] + 1e-3 * torch.randn(
             (b, crowd, m), generator=gen, device=dev)
+    twins = [7, k - 1] + ([200] if k > 200 else [])
     if dup:
-        c[:, 7] = c[:, 3]
-        c[:, k - 1] = c[:, 3]
+        for j in twins:
+            c[:, j] = c[:, 3]
     if grouped:
         xg = lloyd.regroup_divisions(x)
 
@@ -604,7 +636,7 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     require(all(torch.equal(u, v) for u, v in zip((idx, sums, counts),
                                                    again)),
             f"{name}: two calls on the same inputs differ")
-    if dup and bool(((idx == 7) | (idx == k - 1)).any()):
+    if dup and bool(torch.isin(idx, torch.tensor(twins, device=dev)).any()):
         raise AssertionError(f"{name} picked a later duplicate centroid")
     ties = tie_rows(x, c, idx, p_idx, f"{name} against its plain version",
                     fast)
@@ -640,7 +672,7 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
                              f"max abs err {err64}")
     if not skew and off(sums, ref):
         raise AssertionError(f"{name} sums disagree: max abs err {err}")
-    if fast:
+    if fast and n >= 1000:  # a few rows a cluster may round alike
         f32 = scatter(x)
         if not bool(((sums - f32).abs() > SUM_ATOL + SUM_RTOL * f32.abs())
                     .any()):
@@ -659,7 +691,36 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         log(f"  {name}: sums and counts bit-equal to cluster_sums_ordered "
             f"(S={tiling.cols}, R={tiling.rows})")
     ms = plain_ms = kb_ms = float("nan")
-    sums_case = None
+    sums_case = assign_case = None
+    if fast and not grouped:
+        # The card's staging against its plain version: the bf16
+        # centroids bit for bit; the norms, summed in another order, within
+        # M f32 rounding steps of each (2^-23 M relative), +inf past K.
+        t = lloyd.fast_tiling(b, n, k, m)
+        _, cs_k, ccp_k = lloyd._assign_fast(x, c)
+        cs_p, ccp_p = lloyd.stage_centroids(c, t)
+        fin = torch.isfinite(ccp_p)
+        norm_err = float(((ccp_k[fin] - ccp_p[fin]).abs()
+                          / ccp_p[fin].abs().clamp_min(1e-30)).max())
+        require(torch.equal(cs_k.view(torch.int16), cs_p.view(torch.int16))
+                and torch.equal(fin, torch.isfinite(ccp_k))
+                and norm_err <= m * 2.0 ** -23,
+                f"{name}: the card's staged centroids differ from "
+                f"stage_centroids' (norms {norm_err:.3g} apart)")
+        log(f"  K-B fast tiling: {t.regime}, {t.rows} rows a block "
+            f"({t.row_blocks} row blocks), Kp="
+            f"{t.kp}, Mp={t.mp}, chunk {t.chunk}, {t.stages} ring slots, "
+            f"{t.smem} bytes of shared memory; staging bit-equal to "
+            f"stage_centroids', norms within {norm_err:.3g} relative")
+    if time_it and fast and not grouped:
+        # The assignment alone (its staging apart), timed by device time
+        # in phase 9: x and the centroids read once, idx written; 2 B N K
+        # M bf16 operations.
+        assign_case = {
+            "name": name, "launch": lambda: lloyd._assign_fast(x, c),
+            "bound": bound(x_bytes + 4 * (b * k * m + b * n),
+                           2.0 * b * n * k * m, BF16_FLOPS,
+                           "operations (bf16 tensor cores)")}
     if time_it:
         ms = cuda_ms(torch, kernel, 5)
         plain_ms = cuda_ms(torch, plain, 5)
@@ -695,7 +756,8 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
         + (f"  K-B on the ungrouped data {kb_ms:.3f} ms" if grouped
            else "") + f"  bound {bms:.3f} ms ({by})")
-    return (err64 if skew else err), ms, plain_ms, bms, by, sums_case
+    return (err64 if skew else err), ms, plain_ms, bms, by, sums_case, \
+        assign_case
 
 
 #: The cluster-sum pass's kernels (``csrc/cluster_sums.cu``): the dense
@@ -711,37 +773,53 @@ def sum_pass(lloyd, xin, idx, k, m, g, fast):
     return lambda: lloyd._launch_sums(xin, idx, b, n, k, m, g, fast)
 
 
-def pass_device_ms(torch, fn, reps: int = 5) -> dict:
-    """Device time of a pass ``fn``: ``torch.profiler``'s CUDA activity
-    for the pass's kernels over ``reps`` back-to-back calls after a warm
-    one, over the calls it recorded (launches of the route's first
-    kernel): ``ms`` in all and ``by_kernel``. A window that records no
-    launch is profiled again, up to three times."""
+def profile_kernels(torch, fn, keys, reps: int = 5) -> tuple[dict, dict]:
+    """``torch.profiler``'s CUDA activity over ``reps`` back-to-back calls
+    of ``fn`` after a warm one: the device time (µs) and the launches of
+    each of ``keys``, a kernel counted under the longest key its name
+    holds. A window that records none is profiled again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    longest_first = sorted(PASS_KERNELS, key=len, reverse=True)
+    longest_first = sorted(keys, key=len, reverse=True)
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by = dict.fromkeys(PASS_KERNELS, 0.0)
-        calls = dict.fromkeys(PASS_KERNELS, 0)
+        by = dict.fromkeys(keys, 0.0)
+        calls = dict.fromkeys(keys, 0)
         for e in prof.key_averages():
             name = next((k for k in longest_first if k in e.key), None)
             if name:
                 by[name] += getattr(e, "self_device_time_total", None) \
                     or getattr(e, "self_cuda_time_total", 0)
                 calls[name] += e.count
-        first = calls["tile_sums"] or calls["tile_count"]
-        if first:
-            return {"ms": sum(by.values()) / first / 1e3, "calls": first,
-                    "by_kernel": {k: v / first / 1e3 for k, v in by.items()
-                                  if calls[k]}}
-        log(f"profile window {attempt + 1} recorded no cluster-sum pass; "
+        if any(calls.values()):
+            return by, calls
+        log(f"profile window {attempt + 1} recorded no launch of {keys}; "
             "profiling again")
-    raise AssertionError("the profiler recorded no cluster-sum pass")
+    raise AssertionError(f"the profiler recorded no launch of {keys}")
+
+
+def pass_device_ms(torch, fn, reps: int = 5) -> dict:
+    """Device time of a pass ``fn`` (:func:`profile_kernels` over the
+    pass's kernels), over the calls it recorded (launches of the route's
+    first kernel): ``ms`` in all and ``by_kernel``."""
+    by, calls = profile_kernels(torch, fn, PASS_KERNELS, reps)
+    first = calls["tile_sums"] or calls["tile_count"]
+    return {"ms": sum(by.values()) / first / 1e3, "calls": first,
+            "by_kernel": {k: v / first / 1e3 for k, v in by.items()
+                          if calls[k]}}
+
+
+def kernel_device_ms(torch, fn, key: str, reps: int = 5) -> dict:
+    """Device time of one launch of the kernel whose name holds ``key``
+    (:func:`profile_kernels`): ``ms``, and the launches recorded,
+    ``calls``."""
+    by, calls = profile_kernels(torch, fn, (key,), reps)
+    return {"ms": by[key] / calls[key] / 1e3, "calls": calls[key]}
 
 
 def parity_sort_route(torch, gen) -> float:
@@ -2429,7 +2507,20 @@ def main() -> None:
                 parity_lloyd(torch, gen, 1, SIFT_N, SIFT_P, SIFT_M,
                              fast=True),
                 parity_lloyd(torch, gen, D, N, C, M // D, dup=True,
-                             time_it=False, fast=True)]
+                             time_it=False, fast=True),
+                # K-B fast's edges: duplicates across tiles at K=1024,
+                # chunked bands (M=256; M=264 past a tile pair, K=257),
+                # K=257 resident, one row a batch entry.
+                parity_lloyd(torch, gen, 1, 65_536, 1024, 128, dup=True,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 2, 20_000, 256, 256,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 1, 20_000, 257, 264,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 2, 30_000, 257, 128,
+                             time_it=False, fast=True),
+                parity_lloyd(torch, gen, 3, 1, P, 128, time_it=False,
+                             fast=True)]
     cf_cases = [parity_lloyd(torch, gen, 8, SIFT_N, C, 16, grouped=True,
                              fast=True, ordered=True),
                 parity_lloyd(torch, gen, 16, N, C, 8, grouped=True,
@@ -2484,7 +2575,13 @@ def main() -> None:
             + f"), CUDA events {case['events_ms']:.4f} ms, bound "
             f"{case['bound'][0]:.4f} ms, index_add_ "
             f"{case['library_ms']:.4f} ms")
-    log(f"phase 9 (K-A and cluster-sum pass times): "
+    for case in (e[6] for e in lloyd_cases if e[6]):
+        case.update(kernel_device_ms(torch, case.pop("launch"),
+                                     "assign_fast_kernel"))
+        log(f"K-B fast assignment alone, {case['name']}: {case['ms']:.4f} "
+            f"ms device a launch ({case['calls']} profiled), bound "
+            f"{case['bound'][0]:.4f} ms ({case['bound'][1]})")
+    log(f"phase 9 (K-A, cluster-sum pass and K-B fast times): "
         f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -2504,9 +2601,13 @@ def main() -> None:
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
             *c_cases[0][1:5]),
-        row("lloyd_round_fast", "cuda", SRC_B, REPLACES["round_fast"],
+        row("lloyd_round_fast", "cuda", SRC_BF, REPLACES["round_fast"],
             launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
-            *bf_cases[1][1:5]),
+            *bf_cases[1][1:5], assign_ms=bf_cases[1][6]["ms"],
+            assign_bound_ms=bf_cases[1][6]["bound"][0],
+            assign_bound_by=bf_cases[1][6]["bound"][1],
+            assign_ms_by="torch.profiler, device time a launch, back to "
+            "back"),
         row("lloyd_grouped_fast", "cuda", SRC_C, REPLACES["grouped_fast"],
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
             *cf_cases[0][1:5]),

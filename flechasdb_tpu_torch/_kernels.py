@@ -102,8 +102,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fdb_adc_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_adc_scan.restype = i
-    lib.fdb_lloyd_round.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.fdb_lloyd_round.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.fdb_lloyd_round.restype = i
+    lib.fdb_lloyd_round_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                         i, i, p]
+    lib.fdb_lloyd_round_fast.restype = i
     lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.fdb_lloyd_grouped.restype = i
     lib.fdb_cluster_sums.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,

@@ -103,6 +103,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -490,72 +491,10 @@ Dense dense_layout(int N, int K, int M, int g, int rs, int S, int R, int RS,
   return d;
 }
 
-// The ring's mbarriers: a slot's "full" barrier completes when its x (TMA
-// bulk copies, counted in bytes) and its idx (cp.async, one arrival a
-// producer lane) have landed; its "empty" barrier when every consumer
-// warp is done with it.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Arrives on bar once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void mbar_cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n"
-      "LAB_WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
-      "@P1 bra DONE;\n\t"
-      "bra LAB_WAIT;\n"
-      "DONE:\n\t}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Rows [row, row + RS) of columns [col, col + S) of x as the tensor map
-// lays it out (2-D: rs floats a row), into dst; zeros past its edges.
-__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map,
-                                            int col, int row,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
-}
+// The ring's mbarriers (hopper.cuh): a slot's "full" barrier completes
+// when its x (TMA bulk copies, counted in bytes) and its idx (cp.async,
+// one arrival a producer lane) have landed; its "empty" barrier when
+// every consumer warp is done with it.
 
 // CPT consecutive floats at p (16-byte aligned when CPT is 4).
 template <int CPT>
@@ -924,29 +863,6 @@ cudaError_t launch_dense(const float* x, const int32_t* idx, float* sums,
                   kCombineThreads, 0, st>>>(part, pcnt, sums, counts, B, d.T,
                                             K, M);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
-// libcuda); null where the installed CUDA lacks it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // Picks the instance: the copy (kBulk where the slice is whole rows,

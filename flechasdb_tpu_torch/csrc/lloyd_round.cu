@@ -49,21 +49,7 @@
 // MMA order), so the first of them wins. The N x K distance matrix never
 // exists.
 //
-// fast_math (FAST; the TPU kernel's `fast_math=True` branch,
-// pallas_kmeans.py:93-95 and :136-137): the same blocks, ring and argmin,
-// with the assignment one bf16 pass, mma.sync.m16n8k16 (bf16 in, f32
-// accumulate). x and c are rounded to bf16, to nearest even as XLA's
-// astype(bfloat16) rounds, as their fragments are read from the f32
-// tiles: a fragment register holds two neighbouring columns, read as one
-// float2 (two 8-wide steps of the tf32 route make one k16 step; a step
-// wholly past M is skipped, a partial one reads the copies' zero fill).
-// The products of bf16 values are exact in f32, so only the order of the
-// f32 sums differs from a plain f32 product of the rounded operands. cc
-// stays f32 from the f32 centroids, as the TPU kernel's. Bound: the same
-// bytes, and 2*B*N*K*M flops at the dense bf16 tensor-core rate, 989.4
-// TFLOP/s, so the bytes of x bind below K = 590. The float2 fragment
-// loads meet 2-way bank conflicts on the 36-float tile rows; that is left
-// for a later change.
+// fast_math is K-B fast, a kernel of its own (lloyd_round_fast.cu).
 //
 // ptxas (nvcc 12.9, sm_90a, -O3): assign_kernel 128 registers and no
 // spills with 16-byte copies; the 4-byte-copy variant (M % 4 != 0 or
@@ -136,7 +122,7 @@ __device__ __forceinline__ void load_step(float* smem, const float* xb,
   cp_async_commit();
 }
 
-template <bool VEC, bool FAST>
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
               const float* __restrict__ cc, int32_t* __restrict__ idx,
@@ -186,67 +172,31 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
 
     const float* st = smem + (it % kStages) * kStageFloats;
     const int m0 = (it % n_m) * kBK;
-    if constexpr (FAST) {
-      // One bf16 pass, m16n8k16: each fragment register packs two
-      // neighbouring columns, read as one float2 from the f32 tile.
-      const float* xs = st + (wm * kWM + g) * kLd + 2 * t;
-      const float* cs = st + (kBM + wn * kWN + g) * kLd + 2 * t;
+    const float* xs = st + (wm * kWM + g) * kLd + t;
+    const float* cs = st + (kBM + wn * kWN + g) * kLd + t;
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        if (m0 + kk < M) {  // block-uniform
-          uint32_t a[kMT][4];
+    for (int kk = 0; kk < kBK; kk += 8) {
+      if (m0 + kk < M) {  // block-uniform
+        uint32_t ah[kMT][4], al[kMT][4];
 #pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            const float* p = xs + i * 16 * kLd + kk;
-            const float2 v0 = *reinterpret_cast<const float2*>(p);
-            const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * kLd);
-            const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-            const float2 v3 =
-                *reinterpret_cast<const float2*>(p + 8 * kLd + 8);
-            a[i][0] = pack_bf16(v0.x, v0.y);
-            a[i][1] = pack_bf16(v1.x, v1.y);
-            a[i][2] = pack_bf16(v2.x, v2.y);
-            a[i][3] = pack_bf16(v3.x, v3.y);
-          }
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const float* q = cs + j * 8 * kLd + kk;
-            const float2 w0 = *reinterpret_cast<const float2*>(q);
-            const float2 w1 = *reinterpret_cast<const float2*>(q + 8);
-            const uint32_t b0 = pack_bf16(w0.x, w0.y);
-            const uint32_t b1 = pack_bf16(w1.x, w1.y);
-#pragma unroll
-            for (int i = 0; i < kMT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-          }
+        for (int i = 0; i < kMT; ++i) {
+          const float* p = xs + i * 16 * kLd + kk;
+          split_tf32(p[0], ah[i][0], al[i][0]);
+          split_tf32(p[8 * kLd], ah[i][1], al[i][1]);
+          split_tf32(p[4], ah[i][2], al[i][2]);
+          split_tf32(p[8 * kLd + 4], ah[i][3], al[i][3]);
         }
-      }
-    } else {
-      const float* xs = st + (wm * kWM + g) * kLd + t;
-      const float* cs = st + (kBM + wn * kWN + g) * kLd + t;
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 8) {
-        if (m0 + kk < M) {  // block-uniform
-          uint32_t ah[kMT][4], al[kMT][4];
+        for (int j = 0; j < kNT; ++j) {
+          const float* q = cs + j * 8 * kLd + kk;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(q[0], bh0, bl0);
+          split_tf32(q[4], bh1, bl1);
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
-            const float* p = xs + i * 16 * kLd + kk;
-            split_tf32(p[0], ah[i][0], al[i][0]);
-            split_tf32(p[8 * kLd], ah[i][1], al[i][1]);
-            split_tf32(p[4], ah[i][2], al[i][2]);
-            split_tf32(p[8 * kLd + 4], ah[i][3], al[i][3]);
-          }
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const float* q = cs + j * 8 * kLd + kk;
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(q[0], bh0, bl0);
-            split_tf32(q[4], bh1, bl1);
-#pragma unroll
-            for (int i = 0; i < kMT; ++i) {
-              mma_tf32(acc[i][j], al[i], bh0, bh1);
-              mma_tf32(acc[i][j], ah[i], bl0, bl1);
-              mma_tf32(acc[i][j], ah[i], bh0, bh1);
-            }
+            mma_tf32(acc[i][j], al[i], bh0, bh1);
+            mma_tf32(acc[i][j], ah[i], bl0, bl1);
+            mma_tf32(acc[i][j], ah[i], bh0, bh1);
           }
         }
       }
@@ -320,7 +270,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
   }
 }
 
-template <bool VEC, bool FAST>
+template <bool VEC>
 cudaError_t launch_assign(const float* x, const float* c, const float* cc,
                           int32_t* idx, int B, int N, int K, int M,
                           cudaStream_t s) {
@@ -328,33 +278,27 @@ cudaError_t launch_assign(const float* x, const float* c, const float* cc,
   // device, which may differ from the last launch's, and the host call is
   // small beside a round.
   const cudaError_t err = cudaFuncSetAttribute(
-      assign_kernel<VEC, FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      assign_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBM - 1) / kBM, B);
-  assign_kernel<VEC, FAST><<<grid, kThreads, kSmem, s>>>(x, c, cc, idx, N, K,
-                                                         M);
+  assign_kernel<VEC><<<grid, kThreads, kSmem, s>>>(x, c, cc, idx, N, K, M);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x [B, N, M] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32.
-// vec: M % 4 == 0 and x, c 16-byte aligned. fast: the fast_math variant
-// (one bf16 pass). All on the current device (the caller selects it).
-// Returns a cudaError_t.
+// vec: M % 4 == 0 and x, c 16-byte aligned. All on the current device (the
+// caller selects it). Returns a cudaError_t.
 extern "C" int fdb_lloyd_round(const void* x, const void* c, const void* cc,
                                void* idx, int B, int N, int K, int M, int vec,
-                               int fast, void* stream) {
+                               void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* xf = static_cast<const float*>(x);
   const auto* cf = static_cast<const float*>(c);
   const auto* ccf = static_cast<const float*>(cc);
   auto* idxi = static_cast<int32_t*>(idx);
-  if (fast) {
-    return vec ? launch_assign<true, true>(xf, cf, ccf, idxi, B, N, K, M, s)
-               : launch_assign<false, true>(xf, cf, ccf, idxi, B, N, K, M, s);
-  }
-  return vec ? launch_assign<true, false>(xf, cf, ccf, idxi, B, N, K, M, s)
-             : launch_assign<false, false>(xf, cf, ccf, idxi, B, N, K, M, s);
+  return vec ? launch_assign<true>(xf, cf, ccf, idxi, B, N, K, M, s)
+             : launch_assign<false>(xf, cf, ccf, idxi, B, N, K, M, s);
 }

@@ -46,9 +46,13 @@ the top of ``csrc/lloyd_grouped.cu``.
 the cross term is one bf16 pass (x and the centroids rounded to bf16, to
 nearest even, their products accumulated in f32; ``‖c‖²`` stays f32 from
 the f32 centroids) and the sums add the bf16-rounded x. On a CUDA tensor
-it launches the kernel's fast variant (``mma.sync.m16n8k16`` bf16),
-counted under ``lloyd_round_fast`` / ``lloyd_grouped_fast``, and the
-cluster-sum pass's fast variant; on a CPU tensor the plain version
+:func:`lloyd_round` launches K-B fast (``csrc/lloyd_round_fast.cu``:
+the centroids staged once in bf16, as :func:`stage_centroids`, then
+``wgmma`` with the centroid tiles streamed by the TMA, on the tiling
+:func:`fast_tiling` picks), counted under ``lloyd_round_fast``;
+:func:`lloyd_round_grouped` launches K-C's fast variant (``mma.sync``
+bf16), counted under ``lloyd_grouped_fast``; both then run the
+cluster-sum pass's fast variant. On a CPU tensor the plain version
 computes the same function.
 """
 
@@ -441,6 +445,109 @@ def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
                                fast_math))
 
 
+#: K-B fast (``csrc/lloyd_round_fast.cu``): rows a block (three consumer
+#: warpgroups of 64, the wgmma M), centroids a tile (wgmma N; Kp is a
+#: multiple of two tiles), the columns of x a band holds at a time (the
+#: widest band held resident), and the most ring slots.
+_FAST_ROWS, _FAST_TILE, _FAST_CHUNK, _FAST_STAGES = 192, 64, 128, 8
+
+
+class FastTiling(NamedTuple):
+    """How K-B fast runs on a shape (:func:`fast_tiling`). ``regime``:
+    ``"resident"`` (each band's x rounded to bf16 once and held as wgmma
+    A fragments across every centroid tile) or ``"chunked"`` (``chunk``
+    columns at a time, x read once a pair of tiles); ``rows`` a row
+    block, ``row_blocks`` in all; the staged centroids ``[B, kp, mp]``;
+    ``chunk`` columns of x a band holds; ``stages`` ring slots of one
+    tile's chunk; ``smem`` bytes of shared memory a block."""
+    regime: str
+    rows: int
+    row_blocks: int
+    kp: int
+    mp: int
+    chunk: int
+    stages: int
+    smem: int
+
+
+def fast_tiling(b: int, n: int, k: int, m: int) -> FastTiling:
+    """K-B fast's tiling for ``b`` batch entries of ``n`` rows of width
+    ``m`` over ``k`` centroids. A pure function of its arguments (no
+    device query). Mp is m padded to a multiple of 64 (a TMA box's 128
+    bytes of bf16), Kp k to a multiple of 128 (tile pairs: the kernel
+    folds one tile while the next one's products run). Up to Mp = 128 a
+    band is resident; above, it is taken 128 columns at a time. A block
+    holds the f32 x slot of its three bands and as many ring slots, up to
+    8, as its shared memory leaves."""
+    mp = -(-m // 64) * 64
+    kp = -(-k // (2 * _FAST_TILE)) * 2 * _FAST_TILE
+    if mp <= _FAST_CHUNK:
+        regime, chunk = "resident", mp
+    else:
+        regime, chunk = "chunked", _FAST_CHUNK
+    # The alignment slack, the x slot (f32) and its two barriers; a ring
+    # slot's boxes and its two barriers.
+    fixed = 1024 + _FAST_ROWS * chunk * 4 + 16
+    stage = _FAST_TILE * chunk * 2 + 16
+    stages = min(_FAST_STAGES, (_SMEM_MAX - fixed) // stage)
+    return FastTiling(regime, _FAST_ROWS, b * -(-n // _FAST_ROWS), kp, mp,
+                      chunk, stages, fixed + stages * stage)
+
+
+def stage_centroids(centroids: torch.Tensor, tiling: FastTiling,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``centroids [B, K, M]`` f32 → ``(cs [B, Kp, Mp]`` bf16, the
+    centroids rounded to nearest even as ``astype(bfloat16)`` rounds, zero
+    past K and M; ``ccp [B, Kp]`` f32, ``‖c‖²`` of the f32 centroids, +inf
+    past K). K-B fast's operands, made once a round, as the TPU kernel
+    makes its ``chi`` and ``cc`` outside its grid: the plain version of the
+    kernel's own staging, which adds each ``‖c‖²`` in another fixed
+    order."""
+    b, k, m = centroids.shape
+    dev = centroids.device
+    cs = torch.zeros((b, tiling.kp, tiling.mp), dtype=torch.bfloat16,
+                     device=dev)
+    cs[:, :k, :m] = centroids
+    ccp = torch.full((b, tiling.kp), float("inf"), dtype=torch.float32,
+                     device=dev)
+    ccp[:, :k] = (centroids * centroids).sum(dim=-1)
+    return cs, ccp
+
+
+def _assign_fast(x: torch.Tensor, centroids: torch.Tensor,
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K-B fast's assignment on CUDA tensors (checked by the caller, B, N,
+    K > 0): one call stages the centroids on the card into ``cs`` and
+    ``ccp`` (as :func:`stage_centroids`) and launches the kernel; counted
+    once. Returns ``(idx, cs, ccp)``. x is copied only where the TMA
+    cannot read it in place: not 16-byte aligned, or M % 4 != 0, where x
+    and the centroids both get zero columns up to a multiple of 4 (they
+    add nothing to a product or a norm). Never waits on the device."""
+    if x.shape[2] % 4:
+        pad = -x.shape[2] % 4
+        x = torch.nn.functional.pad(x, (0, pad))
+        centroids = torch.nn.functional.pad(centroids, (0, pad))
+    elif x.data_ptr() % 16:
+        x = x.clone()
+    b, n, m = x.shape
+    k = centroids.shape[1]
+    tiling = fast_tiling(b, n, k, m)
+    dev = x.device
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    cs = torch.empty((b, tiling.kp, tiling.mp), dtype=torch.bfloat16,
+                     device=dev)
+    ccp = torch.empty((b, tiling.kp), dtype=torch.float32, device=dev)
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.fdb_lloyd_round_fast(
+            x.data_ptr(), centroids.data_ptr(), cs.data_ptr(),
+            ccp.data_ptr(), idx.data_ptr(), b, n, k, m, tiling.kp, tiling.mp,
+            tiling.chunk, tiling.stages, _kernels.stream_of(x))
+    _kernels.check(rc, "lloyd_round_fast")
+    _kernels.LAUNCHES["lloyd_round_fast"] += 1
+    return idx, cs, ccp
+
+
 def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
                 fast_math: bool = False,
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -454,20 +561,22 @@ def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
     k = centroids.shape[1]
     if k == 0:
         raise ValueError("lloyd_round needs at least one centroid")
-    idx = torch.empty((b, n), dtype=torch.int32, device=x.device)
     if b == 0 or n == 0:
-        return (idx, torch.zeros((b, k, m), device=x.device),
+        return (torch.empty((b, n), dtype=torch.int32, device=x.device),
+                torch.zeros((b, k, m), device=x.device),
                 torch.zeros((b, k), device=x.device))
-    cc = (centroids * centroids).sum(dim=-1).contiguous()
-    vec = m % 4 == 0 and x.data_ptr() % 16 == 0 \
-        and centroids.data_ptr() % 16 == 0
-    lib = _kernels.load()
-    with torch.cuda.device(x.device):
-        rc = lib.fdb_lloyd_round(
-            x.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
-            idx.data_ptr(), b, n, k, m, int(vec), int(fast_math),
-            _kernels.stream_of(x))
-    name = "lloyd_round_fast" if fast_math else "lloyd_round"
-    _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    if fast_math:
+        idx = _assign_fast(x, centroids)[0]
+    else:
+        idx = torch.empty((b, n), dtype=torch.int32, device=x.device)
+        cc = (centroids * centroids).sum(dim=-1).contiguous()
+        vec = m % 4 == 0 and x.data_ptr() % 16 == 0 \
+            and centroids.data_ptr() % 16 == 0
+        lib = _kernels.load()
+        with torch.cuda.device(x.device):
+            rc = lib.fdb_lloyd_round(
+                x.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
+                idx.data_ptr(), b, n, k, m, int(vec), _kernels.stream_of(x))
+        _kernels.check(rc, "lloyd_round")
+        _kernels.LAUNCHES["lloyd_round"] += 1
     return (idx, *_launch_sums(x, idx, b, n, k, m, 1, fast_math))

@@ -18,7 +18,14 @@ tree's sums must lie within ``chip_smoke.SUM_RTOL`` / ``SUM_ATOL`` of the
 f64 sums (for the other tree that is recorded, as is whether a second
 call returns the same bits: a tree that adds with float atomics may
 not). Times are ``chip_smoke.cuda_ms``: CUDA-event
-means over back-to-back warm calls, median of five. In every turn the
+means over back-to-back warm calls, median of five. Beside each round,
+its assignment kernel alone by device time (``chip_smoke.
+kernel_device_ms``: ``torch.profiler`` over back-to-back rounds, the
+launches of the kernel whose name holds ``assign_fast_kernel`` or
+``assign_kernel`` (K-B, either tree) or ``grouped_round_kernel`` (K-C);
+this tree's K-B fast also its staging, ``stage_kernel``, apart),
+against its bound (x and the centroids read once, idx written; 2 B N K M
+operations at the units' rate). In every turn the
 cluster-sum pass is also timed alone on this tree's assignment, as the
 rounds launch it (each tree's ``_launch_sums``: no host sync), by its
 device time (``chip_smoke.pass_device_ms``: ``torch.profiler`` over
@@ -39,7 +46,8 @@ from pathlib import Path
 import chip_smoke as cs
 import profile_scan
 
-# (label, B, N, K, M, grouped, fast, skew): phase 1's timed shapes.
+# (label, B, N, K, M, grouped, fast, skew): phase 1's timed shapes, and
+# K-B fast at the skewed SIFT coarse shape.
 SHAPES = [
     ("K-B PQ", cs.D, cs.N, cs.C, cs.M // cs.D, False, False, False),
     ("K-B coarse", 1, cs.N, cs.P, cs.M, False, False, False),
@@ -53,6 +61,8 @@ SHAPES = [
     ("K-B fast K=1024", 1, 65_536, 1024, 128, False, True, False),
     ("K-B fast SIFT coarse", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M, False,
      True, False),
+    ("K-B fast SIFT coarse skewed", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M,
+     False, True, True),
     ("K-C SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, False, False),
     ("K-C fast SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, True, False),
 ]
@@ -98,8 +108,19 @@ def run(torch, lloyd, this, x, xg, c, grouped, fast, mine: bool) -> dict:
     cs.require(within or not mine, f"sums disagree with the f64 sums: {err}")
     cs.require(same or not mine, "two calls differ")
     del idx, sums, counts, want, flat
-    return {"ms": cs.cuda_ms(torch, call, 5), "reproducible": same,
-            "max_abs_err_f64": err, "within_tolerance": within}
+    # The assignment kernel: K-C's, K-B's or (this tree) K-B fast's and
+    # its staging. "assign_kernel" is no part of "assign_fast_kernel".
+    keys = (("grouped_round_kernel",) if grouped else
+            ("assign_kernel", "assign_fast_kernel", "stage_kernel"))
+    by, calls = cs.profile_kernels(torch, call, keys)
+    first = next(k for k in keys if calls[k] and k != "stage_kernel")
+    out = {"ms": cs.cuda_ms(torch, call, 5),
+           "assign_ms": by[first] / calls[first] / 1e3,
+           "reproducible": same, "max_abs_err_f64": err,
+           "within_tolerance": within}
+    if calls.get("stage_kernel"):  # K-B fast's staging, a launch
+        out["stage_ms"] = by["stage_kernel"] / calls["stage_kernel"] / 1e3
+    return out
 
 
 def main() -> None:
@@ -130,14 +151,21 @@ def main() -> None:
                      (cs.TF32_FLOPS, "operations (TF32 tensor cores)"))
         x_bytes = (xg if grouped else x).numel() * 4
         bms, by = cs.lloyd_bound(x_bytes, b, n, k, m, rate, ops)
+        abms, aby = cs.bound(x_bytes + 4 * (b * k * m + b * n),
+                             2.0 * b * n * k * m, rate, ops)
         for turn, (tree, mod) in enumerate(trees):
             r = run(torch, mod, lloyd, x, xg, c, grouped, fast,
                     tree == "this")
             r.update(shape=label, b=b, n=n, k=k, m=m, tree=tree, turn=turn,
-                     bound_ms=bms, bound_by=by)
+                     bound_ms=bms, bound_by=by, assign_bound_ms=abms,
+                     assign_bound_by=aby)
             records.append(r)
             cs.log(f"{label} B={b} N={n} K={k} M={m} [{tree}]: "
-                   f"{r['ms']:.3f} ms, bound {bms:.3f} ms ({by}); two "
+                   f"{r['ms']:.3f} ms, bound {bms:.3f} ms ({by}); the "
+                   f"assignment alone {r['assign_ms']:.4f} ms device"
+                   + (f" (its staging {r['stage_ms']:.4f} more)"
+                      if "stage_ms" in r else "")
+                   + f", bound {abms:.4f} ms ({aby}); two "
                    f"calls {'bit-equal' if r['reproducible'] else 'DIFFER'};"
                    f" sums max_abs_err vs f64 {r['max_abs_err_f64']:.3g}"
                    f"{'' if r['within_tolerance'] else ' (over the tolerance)'}")

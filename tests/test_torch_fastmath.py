@@ -279,25 +279,46 @@ def test_fast_wrappers_count_nothing_on_cpu():
                                          (12, 3000, 256, 128, True),
                                          (2, 129, 1, 5, False),
                                          (1, 1000, 16, 24, False),
-                                         (2, 4133, 300, 100, False)])
+                                         (2, 4133, 300, 100, False),
+                                         (12, 3000, 256, 128, 200),
+                                         (1, 3000, 1024, 128, 1000),
+                                         (2, 3000, 256, 256, False),
+                                         (1, 3000, 257, 264, False),
+                                         (2, 3000, 257, 128, False),
+                                         (3, 1, 100, 128, False),
+                                         (1, 3000, 100, 136, False)])
 def test_fast_kernel_matches_plain_on_card(cuda, b, n, k, m, dup):
+    """K-B fast against the plain fast round, two calls bit-equal, the
+    full-precision round launching only K-B. ``dup``: centroid 7 (True)
+    or that centroid, in another tile than centroid 3, is a copy of
+    centroid 3 and must never be picked. The shapes take K-B fast's
+    regimes and their edges (M=128 the widest resident band; M=136, 256
+    and 264 chunked), a tile pair past K=256 and one row."""
     rng = np.random.default_rng(n + k)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
     c = x[:, rng.integers(0, n, k)].copy()
+    twin = 7 if dup is True else dup
     if dup:
-        c[:, 7] = c[:, 3]
+        c[:, twin] = c[:, 3]
     xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
     before = dict(_kernels.LAUNCHES)
-    idx, sums, counts = (a.cpu().numpy() for a in lloyd.lloyd_round(
-        xt, ct, fast_math=True))
+    first = lloyd.lloyd_round(xt, ct, fast_math=True)
+    again = lloyd.lloyd_round(xt, ct, fast_math=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+    idx, sums, counts = (a.cpu().numpy() for a in first)
     assert _kernels.LAUNCHES["lloyd_round_fast"] == \
-        before["lloyd_round_fast"] + 1
+        before["lloyd_round_fast"] + 2
     assert _kernels.LAUNCHES["lloyd_round"] == before["lloyd_round"]
     ref_idx = lloyd.lloyd_round_plain(xt, ct, fast_math=True)[0] \
         .cpu().numpy()
     _check_fast_round(x, c, idx, sums, counts, ref_idx)
     if dup:
-        assert not (idx == 7).any()
+        assert not (idx == twin).any()
+    lloyd.lloyd_round(xt, ct)
+    assert _kernels.LAUNCHES["lloyd_round"] == before["lloyd_round"] + 1
+    assert _kernels.LAUNCHES["lloyd_round_fast"] == \
+        before["lloyd_round_fast"] + 2
 
 
 @pytest.mark.cuda
