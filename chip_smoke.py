@@ -38,8 +38,14 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    M=264 with K=257, past a tile pair), K=257 at M=128, and one row
    (N=1); its
    tiling (``ops.lloyd.fast_tiling``) is printed at each shape. K-C fast
-   at the SIFT PQ shape, m=8, m=32, m=64 (K=300) and duplicated
-   centroids; ties measured on the bf16-rounded operands, sums against
+   (``csrc/lloyd_grouped_fast.cu``, ``wgmma`` on each grouped row read once
+   by the TMA) at the SIFT PQ shape, m=8, m=32, m=64 (K=300) and duplicated
+   centroids, at K=256 and across tiles at K=1024 (copies of centroid 3 at
+   7, 200 and 1023); its staging on the card bit-equal to
+   ``stage_grouped_centroids``, its tiling (``ops.lloyd.
+   grouped_fast_tiling``) printed, and at m >= 16 its picks equal to K-B
+   fast's on the ungrouped data (0 rows may differ); ties measured on the
+   bf16-rounded operands, sums against
    sums of the bf16-rounded x, which the sums of the f32 x must miss
    (where there are 1000 rows or more). Each Lloyd
    round is K-B's or K-C's assignment followed by the cluster-sum pass
@@ -51,9 +57,9 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    one skewed K-B case at the SIFT coarse shape (over half the rows next
    to one centroid), whose serial f32 ``index_add_`` drifts past the
    tolerance by itself (both errors are printed). The kernels'
-   ``ptxas`` registers and spills are printed for each K-C and K-B fast
-   instance (K-B fast's must not spill), with ptxas's performance
-   warnings about K-B fast.
+   ``ptxas`` registers and spills are printed for each K-C, K-B fast and
+   K-C fast instance (the fast ones must not spill), with ptxas's
+   performance warnings about the fast ones.
    K-B, K-C and plain times are CUDA-event means over back-to-back warm
    calls (median of five); at the SIFT PQ shape K-B is timed on the
    ungrouped data beside K-C; at each timed shape the cluster-sum pass
@@ -204,12 +210,15 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ``torch.profiler`` has not run in the process while they were timed.
    The pass: its device time a call at each of phase 1's timed shapes
    (``torch.profiler``'s CUDA activity for its kernels over back-to-back
-   calls), split over its kernels. K-B fast's assignment alone at its
-   four timed shapes: the device time of one ``assign_fast_kernel``
-   launch (``torch.profiler`` over back-to-back calls of
-   ``ops.lloyd._assign_fast``, which stages the centroids and launches
-   it), against its bound (x and the centroids read once, idx written,
-   2·B·N·K·M bf16 operations). K-A: at phase 1's six shapes and at
+   calls), split over its kernels. The assignment kernels alone: K-B
+   fast's at its four timed shapes, K-C's and K-C fast's at the SIFT PQ
+   shape: the device time of one ``assign_fast_kernel``,
+   ``grouped_round_kernel`` or ``grouped_fast_assign`` launch
+   (``torch.profiler`` over back-to-back calls of ``ops.lloyd.
+   _assign_fast``, ``_assign_grouped`` or ``_assign_grouped_fast``; the
+   fast ones stage the centroids and launch it), against its bound (x and
+   the centroids read once, idx written, 2·B·N·K·M operations at the TF32
+   or bf16 rate). K-A: at phase 1's six shapes and at
    each path's own buckets and query tables (checked against the plain
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
@@ -233,8 +242,9 @@ cluster-sum pass (the sum halves of the two Lloyd kernels; its
 ``library_ms`` is ``index_add_`` of the same sums), with its
 counterpart's launches over the paths (phases 2 to 8), its time
 (``ms_by`` names the method; K-A's rows
-also carry ``warm_ms`` and ``host_ms``; K-B fast's ``assign_ms`` and
-``assign_bound_ms``, its assignment alone at the PQ shape), its plain
+also carry ``warm_ms`` and ``host_ms``; K-B fast's, K-C's and K-C fast's
+``assign_ms`` and ``assign_bound_ms``, the assignment alone at K-B's PQ
+shape and K-C's SIFT PQ shape), its plain
 version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
@@ -286,6 +296,7 @@ SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
 SRC_BF = "flechasdb_tpu_torch/csrc/lloyd_round_fast.cu"
 SRC_C = "flechasdb_tpu_torch/csrc/lloyd_grouped.cu"
+SRC_CF = "flechasdb_tpu_torch/csrc/lloyd_grouped_fast.cu"
 SRC_S = "flechasdb_tpu_torch/csrc/cluster_sums.cu"
 REPLACES = {
     "indexed": "flechasdb_tpu/ops/pallas_scan.py:528",
@@ -471,18 +482,19 @@ def setup(torch):
         log(_kernels.build_log.strip())
         for line in kernel_ptxas(_kernels.build_log):
             log(line)
-            require(not line.startswith("K-B fast ptxas KS")
+            require(not line.startswith(("K-B fast ptxas KS",
+                                         "K-C fast ptxas M"))
                     or ", 0 bytes spill stores" in line,
-                    f"K-B fast spills registers: {line}")
+                    f"a fast kernel spills registers: {line}")
 
 
 def kernel_ptxas(build_log: str) -> list:
-    """From ``ptxas -v``: a line per K-C instance (its subvector width M,
-    and whether it is the fast_math variant) and per K-B fast instance
-    (k16 steps a chunk, chunked or resident):
-    registers, stack frame and spills; K-B fast's shared memory is
-    dynamic (``ops.lloyd.fast_tiling``'s ``smem``, printed at each shape).
-    Then each of ptxas's performance warnings about K-B fast."""
+    """From ``ptxas -v``: a line per K-C and K-C fast instance (its
+    subvector width M) and per K-B fast instance (k16 steps a chunk,
+    chunked or resident): registers, stack frame and spills; the fast
+    kernels' shared memory is dynamic (``ops.lloyd.fast_tiling``'s and
+    ``grouped_fast_tiling``'s ``smem``, printed at each shape). Then each
+    of ptxas's performance warnings about the fast kernels."""
     out, name, frame = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -493,20 +505,25 @@ def kernel_ptxas(build_log: str) -> list:
         elif name and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line)
             regs = regs.group(1) if regs else "?"
-            w = re.search(r"grouped_round_kernelILi(\d+)ELb([01])E", name)
+            w = re.search(r"grouped_round_kernelILi(\d+)EE", name)
             f = re.search(r"assign_fast_kernelILi(\d+)ELb([01])E", name)
+            cf = re.search(r"grouped_fast_assignILi(\d+)EE", name)
             if w:
-                out.append(f"K-C ptxas M={w.group(1)}"
-                           f"{' fast' if w.group(2) == '1' else ''}: "
-                           f"{regs} registers, {frame}")
+                out.append(f"K-C ptxas M={w.group(1)}: {regs} registers, "
+                           f"{frame}")
+            elif cf:
+                out.append(f"K-C fast ptxas M={cf.group(1)}: {regs} "
+                           f"registers, {frame}")
             elif f:
                 out.append(f"K-B fast ptxas KS={f.group(1)} "
                            f"{'chunked' if f.group(2) == '1' else 'resident'}"
                            f": {regs} registers at entry (setmaxnreg: "
                            f"consumers 152, producer 40), {frame}")
             name = None
-        elif "assign_fast_kernel" in line and "Performance" in line:
-            out.append("K-B fast ptxas warning: " + line.strip())
+        elif "Performance" in line and ("assign_fast_kernel" in line
+                                        or "grouped_fast_assign" in line):
+            out.append(("K-B fast" if "assign_fast_kernel" in line
+                        else "K-C fast") + " ptxas warning: " + line.strip())
     return out
 
 
@@ -642,10 +659,15 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
                     fast)
     if grouped:
         # K-C splits, multiplies and accumulates as K-B does, so their
-        # distances and picks are expected to be equal (0 rows differ).
+        # distances and picks are expected to be equal (0 rows differ);
+        # K-C fast issues a division's k16 steps as K-B fast does on the
+        # ungrouped data where the division starts a step (m >= 16), and
+        # stages its norms in K-B fast's order: 0 rows may differ there.
         kb_ties = tie_rows(x, c, idx,
                            lloyd.lloyd_round(x, c, fast_math=fast)[0],
                            f"K-C against K-B{' fast' if fast else ''}", fast)
+        require(not fast or m < 16 or kb_ties == 0,
+                f"{name}: {kb_ties} rows differ from K-B fast's")
     # Sums and counts checked against the plain scatter of the kernel's
     # own assignment, so tie rows do not blur the check.
     flat = (idx.long() + k * torch.arange(b, device=dev)[:, None]
@@ -712,15 +734,42 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
             f"{t.kp}, Mp={t.mp}, chunk {t.chunk}, {t.stages} ring slots, "
             f"{t.smem} bytes of shared memory; staging bit-equal to "
             f"stage_centroids', norms within {norm_err:.3g} relative")
-    if time_it and fast and not grouped:
-        # The assignment alone (its staging apart), timed by device time
-        # in phase 9: x and the centroids read once, idx written; 2 B N K
-        # M bf16 operations.
+    if fast and grouped:
+        # K-C fast's staging on the card against its plain version, as
+        # K-B fast's above.
+        t = lloyd.grouped_fast_tiling(b, n, k, m)
+        _, cs_k, ccp_k = lloyd._assign_grouped_fast(xg, c)
+        cs_p, ccp_p = lloyd.stage_grouped_centroids(c, t)
+        fin = torch.isfinite(ccp_p)
+        norm_err = float(((ccp_k[fin] - ccp_p[fin]).abs()
+                          / ccp_p[fin].abs().clamp_min(1e-30)).max())
+        require(torch.equal(cs_k.view(torch.int16), cs_p.view(torch.int16))
+                and torch.equal(fin, torch.isfinite(ccp_k))
+                and norm_err <= m * 2.0 ** -23,
+                f"{name}: the card's staged centroids differ from "
+                f"stage_grouped_centroids' (norms {norm_err:.3g} apart)")
+        log(f"  K-C fast tiling: {t.groups} groups of {t.g} divisions, "
+            f"{t.per_pass} a pass in {t.passes} pass(es), {t.rows} rows a "
+            f"block ({t.row_blocks} row blocks), Kp={t.kp}, {t.stages} ring "
+            f"slots, {t.smem} bytes of shared memory; staging bit-equal to "
+            f"stage_grouped_centroids', norms within {norm_err:.3g} "
+            "relative")
+    if time_it and (fast or grouped):
+        # The assignment alone (a fast kernel's staging apart), timed by
+        # device time in phase 9: x and the centroids read once, idx
+        # written; 2 B N K M operations at the units' rate.
+        rate, ops = ((BF16_FLOPS, "operations (bf16 tensor cores)") if fast
+                     else (TF32_FLOPS, "operations (TF32 tensor cores)"))
+        launch, key = (
+            (lambda: lloyd._assign_grouped_fast(xg, c), "grouped_fast_assign")
+            if fast and grouped else
+            (lambda: lloyd._assign_grouped(xg, c), "grouped_round_kernel")
+            if grouped else
+            (lambda: lloyd._assign_fast(x, c), "assign_fast_kernel"))
         assign_case = {
-            "name": name, "launch": lambda: lloyd._assign_fast(x, c),
+            "name": name, "launch": launch, "key": key,
             "bound": bound(x_bytes + 4 * (b * k * m + b * n),
-                           2.0 * b * n * k * m, BF16_FLOPS,
-                           "operations (bf16 tensor cores)")}
+                           2.0 * b * n * k * m, rate, ops)}
     if time_it:
         ms = cuda_ms(torch, kernel, 5)
         plain_ms = cuda_ms(torch, plain, 5)
@@ -2440,6 +2489,15 @@ def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
             "library_ms": None, "ms_by": ms_by, **extra}
 
 
+def assign_fields(case) -> dict:
+    """A Lloyd row's assignment alone (phase 9's device time of one launch
+    of the assignment kernel) beside its bound."""
+    return {"assign_ms": case["ms"], "assign_bound_ms": case["bound"][0],
+            "assign_bound_by": case["bound"][1],
+            "assign_ms_by": "torch.profiler, device time a launch, back to "
+            "back"}
+
+
 def sums_row(launches, err, case):
     """The cluster-sum pass's row, timed alone after the K-B round at the
     PQ shape: device time (:func:`pass_device_ms`); ``library_ms`` is
@@ -2530,7 +2588,11 @@ def main() -> None:
                 parity_lloyd(torch, gen, 2, N, 300, 64, grouped=True,
                              time_it=False, fast=True),
                 parity_lloyd(torch, gen, 8, N, C, 16, dup=True, grouped=True,
-                             time_it=False, fast=True)]
+                             time_it=False, fast=True),
+                # Duplicates across centroid tiles: copies of centroid 3
+                # at 7, 200 and 1023.
+                parity_lloyd(torch, gen, 8, N, 1024, 16, dup=True,
+                             grouped=True, time_it=False, fast=True)]
     sort_err = parity_sort_route(torch, gen)
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
@@ -2577,11 +2639,12 @@ def main() -> None:
             f"{case['library_ms']:.4f} ms")
     for case in (e[6] for e in lloyd_cases if e[6]):
         case.update(kernel_device_ms(torch, case.pop("launch"),
-                                     "assign_fast_kernel"))
-        log(f"K-B fast assignment alone, {case['name']}: {case['ms']:.4f} "
-            f"ms device a launch ({case['calls']} profiled), bound "
-            f"{case['bound'][0]:.4f} ms ({case['bound'][1]})")
-    log(f"phase 9 (K-A, cluster-sum pass and K-B fast times): "
+                                     case["key"]))
+        log(f"assignment alone ({case['key']}), {case['name']}: "
+            f"{case['ms']:.4f} ms device a launch ({case['calls']} "
+            f"profiled), bound {case['bound'][0]:.4f} ms "
+            f"({case['bound'][1]})")
+    log(f"phase 9 (K-A, cluster-sum pass and assignment times): "
         f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -2600,17 +2663,13 @@ def main() -> None:
             *b_cases[1][1:5]),
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
-            *c_cases[0][1:5]),
+            *c_cases[0][1:5], **assign_fields(c_cases[0][6])),
         row("lloyd_round_fast", "cuda", SRC_BF, REPLACES["round_fast"],
             launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
-            *bf_cases[1][1:5], assign_ms=bf_cases[1][6]["ms"],
-            assign_bound_ms=bf_cases[1][6]["bound"][0],
-            assign_bound_by=bf_cases[1][6]["bound"][1],
-            assign_ms_by="torch.profiler, device time a launch, back to "
-            "back"),
-        row("lloyd_grouped_fast", "cuda", SRC_C, REPLACES["grouped_fast"],
+            *bf_cases[1][1:5], **assign_fields(bf_cases[1][6])),
+        row("lloyd_grouped_fast", "cuda", SRC_CF, REPLACES["grouped_fast"],
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
-            *cf_cases[0][1:5]),
+            *cf_cases[0][1:5], **assign_fields(cf_cases[0][6])),
         sums_row(launches["cluster_sums"],
                  max([e[0] for e in lloyd_cases] + [sort_err]),
                  b_cases[1][5]),

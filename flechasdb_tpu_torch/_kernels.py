@@ -1,7 +1,9 @@
 """Build, load and count the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded through :mod:`ctypes`.
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process a source, all started together, and the objects link
+into ONE shared library with a plain C interface, loaded through
+:mod:`ctypes`.
 The build runs at the first launch (never at import: the package imports
 on machines with no CUDA toolkit) into ``build/`` beside this file, under
 a name keyed on the hash of the sources and of the ``csrc/*.cuh`` headers
@@ -83,19 +85,46 @@ def _lib_path() -> Path:
 
 
 def _build(path: Path) -> str:
+    """Compiles each source in its own ``nvcc`` process, all at once, then
+    links the objects; returns the compilers' output in source order."""
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    objs = path.with_name(f"{path.name}.{os.getpid()}.objs")
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600)
+        objs.mkdir()
+        procs = []
+        for src in sources():
+            obj = objs / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            try:
+                out = proc.communicate(timeout=600)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out = proc.communicate()[0] + "\n(timed out)"
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *[str(o) for _, o, _ in procs]],
+            capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}"
+                f"{res.stderr}")
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)
-    return res.stdout + res.stderr
+        shutil.rmtree(objs, ignore_errors=True)
+    return "".join(log) + res.stdout + res.stderr
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -107,8 +136,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fdb_lloyd_round_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                          i, i, p]
     lib.fdb_lloyd_round_fast.restype = i
-    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.fdb_lloyd_grouped.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.fdb_lloyd_grouped.restype = i
+    lib.fdb_lloyd_grouped_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, p]
+    lib.fdb_lloyd_grouped_fast.restype = i
     lib.fdb_cluster_sums.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                      p]
     lib.fdb_cluster_sums.restype = i

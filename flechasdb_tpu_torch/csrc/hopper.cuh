@@ -1,8 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that stream tiles with the
 // TMA: the mbarrier operations of a producer/consumer ring, the bulk and
 // tensor copies that complete on them, and cuTensorMapEncodeTiled looked
-// up through the CUDA runtime. Used by the cluster-sum pass
-// (cluster_sums.cu) and K-B fast (lloyd_round_fast.cu).
+// up through the CUDA runtime (the cluster-sum pass, cluster_sums.cu; K-B
+// fast, lloyd_round_fast.cu; K-C fast, lloyd_grouped_fast.cu); then the
+// bf16 A fragments of x and the norms' loads that K-B fast and K-C fast
+// share.
 // The definitions sit in an anonymous namespace, so each kernel's
 // translation unit keeps its own copy.
 
@@ -114,6 +116,45 @@ EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(p);
   }();
   return fn;
+}
+
+// --- bf16 A fragments and norms for the Lloyd kernels' fast variants --------
+
+constexpr int kBox = 64 * 128;  // bytes of a TMA box: 64 rows of 128 bytes
+
+// A band of 64 rows as A fragments, rounded to bf16 once: KS k16 steps
+// from KS / 2 boxes of 64 rows x 32 floats, each row 128 bytes whose
+// 16-byte unit u sits at u ^ (row % 8) (the TMA's 128-byte swizzle).
+// Register e of step s holds row 16 w4 + g + 8 (e & 1), columns 16 s + 2 t
+// + 8 (e >> 1) and the next, the lower column in the low half.
+template <int KS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4],
+                                       const unsigned char* band, int w4,
+                                       int g, int t) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * w4 + g + 8 * (e & 1);
+      const int col = 16 * (s % 2) + 2 * t + 8 * (e >> 1);  // in box s / 2
+      const int unit = (col >> 2) ^ (row & 7);
+      const float2 v = *reinterpret_cast<const float2*>(
+          band + (s / 2) * kBox + row * 128 + unit * 16 + (col & 3) * 4);
+      a[s][e] = pack_bf16(v.x, v.y);
+    }
+  }
+}
+
+// The 16 |c|^2 of this thread's columns of a 64-centroid tile, 8 j + 2 t +
+// h, loaded before the wait for the tile's products so that their latency
+// hides behind it.
+__device__ __forceinline__ void load_cc(float2 (&ck)[8],
+                                        const float* __restrict__ cct,
+                                        int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ck[j] = __ldg(reinterpret_cast<const float2*>(cct + 8 * j + 2 * t));
+  }
 }
 
 }  // namespace

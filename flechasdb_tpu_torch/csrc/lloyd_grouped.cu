@@ -59,21 +59,11 @@
 // first minimum wins as in `jnp.argmin` (duplicated centroids give
 // bit-equal distances, so the first of them wins).
 //
-// fast_math (FAST; the TPU kernel's `fast_math=True` branch,
-// pallas_kmeans.py:189-190 and :221-222): the same blocks, slots and fold,
-// with the assignment one bf16 pass, mma.sync.m16n8k16. The
-// block stages its centroids rounded to bf16 (to nearest even, as XLA's
-// astype(bfloat16)) as packed fragment pairs, a step of centroid row g of
-// an n8 tile at s ^ FSW(g), so that a quarter warp's 8-byte loads hit
-// distinct banks; each warp rounds its x fragments once, read as float2
-// from the f32 tile. m=8 is half a k16 step: the upper half of the x and
-// centroid fragments is zero, as the TPU's block-diagonal operand makes
-// the off-block products; cc stays f32 from the f32 centroids. Bound:
-// the same bytes; 2*B*N*K*m flops at the dense bf16 rate (989.4 TFLOP/s)
-// leave the bytes of xg binding below K = 590 (K = 256 in the SIFT PQ fit).
+// The fast_math branch of the same TPU kernel is K-C fast, a kernel of its
+// own (lloyd_grouped_fast.cu).
 //
 // ptxas (nvcc 12.9, sm_90a, -O3), registers a thread: m=8 126, m=16 116,
-// m=32 109, m=64 160; fast: 93, 96, 85, 116; no spills in any.
+// m=32 109, m=64 160; no spills in any.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,60 +91,32 @@ struct Shape {
   static constexpr int XTILE = BM * LD;        // floats of an x slot
   static constexpr int NJ = 2;                 // n8 tiles a product group
   static constexpr int MINB = M <= 32 ? 2 : 1; // blocks an SM, for ptxas
-  // fast_math: k16 steps (m=8 is half of one, zero padded), and the
-  // step swizzle that puts a quarter warp's 8-byte centroid loads on
-  // distinct banks (step s of centroid row g of an n8 tile is stored at
-  // s ^ FSW(g)).
-  static constexpr int S16 = (M + 15) / 16;
-  static constexpr int FE = 4 * S16;           // uint2 a staged centroid
-  __host__ __device__ static constexpr int FSW(int g) {
-    return S16 == 2 ? (g >> 1) & 1 : S16 == 4 ? g & 3 : 0;
-  }
   static_assert(kKT % (2 * 8 * NJ) == 0, "tiles hold whole group pairs");
-  static_assert(FE * 8 <= H * 16, "the bf16 centroids fit the tf32 area");
 };
 
 // Stages centroids [k0, k0 + kt) of the division, split, into cent (kt x H
 // uint4, entry (k, s, t) = {hi, hi, lo, lo} of elements 8s + t and
 // 8s + t + 4, step s swapped with s ^ 1 for odd k when M >= 16) and their
-// |c|^2 into ccs; zeros and +inf past K. FAST: rounded to bf16 instead,
-// kt x FE uint2, entry (k, s, t) = {elements 16s + 2t, 16s + 2t + 1;
-// 16s + 2t + 8, 16s + 2t + 9} packed, at step s ^ FSW(k % 8); the second
-// pair is zero for m=8.
-template <int M, bool FAST>
+// |c|^2 into ccs; zeros and +inf past K.
+template <int M>
 __device__ __forceinline__ void stage_centroids(uint4* cent, float* ccs,
                                                 const float* __restrict__ cb,
                                                 const float* __restrict__ ccb,
                                                 int k0, int kt, int K) {
   using S = Shape<M>;
-  if constexpr (FAST) {
-    uint2* cent2 = reinterpret_cast<uint2*>(cent);
-    for (int e = threadIdx.x; e < kt * S::FE; e += kThreads) {
-      const int k = e / S::FE, s = (e % S::FE) / 4, t = e % 4;
-      float2 v0 = make_float2(0.f, 0.f), v1 = v0;
-      if (k0 + k < K) {
-        const float* p = cb + (size_t)(k0 + k) * M + 16 * s + 2 * t;
-        v0 = make_float2(p[0], p[1]);
-        if (M > 8) v1 = make_float2(p[8], p[9]);
-      }
-      cent2[k * S::FE + 4 * (s ^ S::FSW(k & 7)) + t] =
-          make_uint2(pack_bf16(v0.x, v0.y), pack_bf16(v1.x, v1.y));
+  for (int e = threadIdx.x; e < kt * S::H; e += kThreads) {
+    const int k = e / S::H, s = (e % S::H) / 4, t = e % 4;
+    float v0 = 0.f, v1 = 0.f;
+    if (k0 + k < K) {
+      const float* p = cb + (size_t)(k0 + k) * M + 8 * s + t;
+      v0 = p[0];
+      v1 = p[4];
     }
-  } else {
-    for (int e = threadIdx.x; e < kt * S::H; e += kThreads) {
-      const int k = e / S::H, s = (e % S::H) / 4, t = e % 4;
-      float v0 = 0.f, v1 = 0.f;
-      if (k0 + k < K) {
-        const float* p = cb + (size_t)(k0 + k) * M + 8 * s + t;
-        v0 = p[0];
-        v1 = p[4];
-      }
-      uint4 q;
-      split_tf32(v0, q.x, q.z);
-      split_tf32(v1, q.y, q.w);
-      const int sw = M >= 16 ? (k & 1) : 0;
-      cent[k * S::H + 4 * (s ^ sw) + t] = q;
-    }
+    uint4 q;
+    split_tf32(v0, q.x, q.z);
+    split_tf32(v1, q.y, q.w);
+    const int sw = M >= 16 ? (k & 1) : 0;
+    cent[k * S::H + 4 * (s ^ sw) + t] = q;
   }
   for (int k = threadIdx.x; k < kt; k += kThreads) {
     ccs[k] = k0 + k < K ? ccb[k0 + k] : INFINITY;
@@ -178,9 +140,9 @@ __device__ __forceinline__ void load_x(float* slot, const float* xb, int row0,
   }
 }
 
-// Shared memory (dynamic): cent [kt x H] uint4 (FAST: its first kt x FE
-// uint2) | x slots [2 x XTILE] | ccs [kt].
-template <int M, bool FAST>
+// Shared memory (dynamic): cent [kt x H] uint4 | x slots [2 x XTILE] |
+// ccs [kt].
+template <int M>
 __global__ void __launch_bounds__(kThreads, Shape<M>::MINB)
 grouped_round_kernel(const float* __restrict__ xg,
                      const float* __restrict__ c,
@@ -204,9 +166,8 @@ grouped_round_kernel(const float* __restrict__ xg,
   // the odd rows' steps swapped.
   const int sg = M >= 16 ? (g & 1) : 0;
   const uint4* cw = cent + g * S::H + t;
-  const uint2* cw2 = reinterpret_cast<const uint2*>(cent) + g * S::FE + t;
 
-  if (n_kt == 1) stage_centroids<M, FAST>(cent, ccs, cb, ccb, 0, kt, K);
+  if (n_kt == 1) stage_centroids<M>(cent, ccs, cb, ccb, 0, kt, K);
   int tile = blockIdx.x;
   if (tile < n_tiles) load_x<M>(xs, xb, tile * S::BM, N);
   cp_async_commit();
@@ -220,40 +181,19 @@ grouped_round_kernel(const float* __restrict__ xg,
     }
     cp_async_commit();
 
-    // The warp's rows: MT m16 tiles, split once (FAST: rounded to bf16
-    // once, into ah; the m=8 step's upper half is zero, as the TPU's
-    // block-diagonal operand makes the off-block products).
+    // The warp's rows: MT m16 tiles, split once.
     const float* xt = xs + (it & 1) * S::XTILE + warp * 16 * S::MT * S::LD;
-    uint32_t ah[S::MT][FAST ? S::S16 : S::S][4];
-    uint32_t al[S::MT][FAST ? 1 : S::S][4];
+    uint32_t ah[S::MT][S::S][4];
+    uint32_t al[S::MT][S::S][4];
 #pragma unroll
     for (int i = 0; i < S::MT; ++i) {
-      if constexpr (FAST) {
 #pragma unroll
-        for (int s = 0; s < S::S16; ++s) {
-          const float* p = xt + (16 * i + g) * S::LD + 16 * s + 2 * t;
-          const float2 v0 = *reinterpret_cast<const float2*>(p);
-          const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * S::LD);
-          ah[i][s][0] = pack_bf16(v0.x, v0.y);
-          ah[i][s][1] = pack_bf16(v1.x, v1.y);
-          ah[i][s][2] = ah[i][s][3] = 0u;
-          if (M > 8) {
-            const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-            const float2 v3 =
-                *reinterpret_cast<const float2*>(p + 8 * S::LD + 8);
-            ah[i][s][2] = pack_bf16(v2.x, v2.y);
-            ah[i][s][3] = pack_bf16(v3.x, v3.y);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int s = 0; s < S::S; ++s) {
-          const float* p = xt + (16 * i + g) * S::LD + 8 * s + t;
-          split_tf32(p[0], ah[i][s][0], al[i][s][0]);
-          split_tf32(p[8 * S::LD], ah[i][s][1], al[i][s][1]);
-          split_tf32(p[4], ah[i][s][2], al[i][s][2]);
-          split_tf32(p[8 * S::LD + 4], ah[i][s][3], al[i][s][3]);
-        }
+      for (int s = 0; s < S::S; ++s) {
+        const float* p = xt + (16 * i + g) * S::LD + 8 * s + t;
+        split_tf32(p[0], ah[i][s][0], al[i][s][0]);
+        split_tf32(p[8 * S::LD], ah[i][s][1], al[i][s][1]);
+        split_tf32(p[4], ah[i][s][2], al[i][s][2]);
+        split_tf32(p[8 * S::LD + 4], ah[i][s][3], al[i][s][3]);
       }
     }
     float best[S::MT][2];
@@ -270,11 +210,10 @@ grouped_round_kernel(const float* __restrict__ xg,
     for (int ki = 0; ki < n_kt; ++ki) {
       if (n_kt > 1) {
         __syncthreads();  // the previous centroid tile is no longer read
-        stage_centroids<M, FAST>(cent, ccs, cb, ccb, ki * kt, kt, K);
+        stage_centroids<M>(cent, ccs, cb, ccb, ki * kt, kt, K);
         __syncthreads();
       }
-      // x . c for NJ n8 tiles from n8 tile j0 on: 3xTF32 in K-B's order
-      // (FAST: one bf16 pass).
+      // x . c for NJ n8 tiles from n8 tile j0 on: 3xTF32 in K-B's order.
       auto products = [&](float (&acc)[S::MT][S::NJ][4], int j0) {
 #pragma unroll
         for (int i = 0; i < S::MT; ++i) {
@@ -284,38 +223,20 @@ grouped_round_kernel(const float* __restrict__ xg,
             for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
           }
         }
-        if constexpr (FAST) {
 #pragma unroll
-          for (int s = 0; s < S::S16; ++s) {
-            uint2 bf[S::NJ];
+        for (int s = 0; s < S::S; ++s) {
+          uint4 bf[S::NJ];
 #pragma unroll
-            for (int j = 0; j < S::NJ; ++j) {
-              bf[j] = cw2[(j0 + j) * 8 * S::FE + 4 * (s ^ S::FSW(g))];
-            }
-#pragma unroll
-            for (int j = 0; j < S::NJ; ++j) {
-#pragma unroll
-              for (int i = 0; i < S::MT; ++i) {
-                mma_bf16(acc[i][j], ah[i][s], bf[j].x, bf[j].y);
-              }
-            }
+          for (int j = 0; j < S::NJ; ++j) {
+            bf[j] = cw[(j0 + j) * 8 * S::H + 4 * (s ^ sg)];
           }
-        } else {
 #pragma unroll
-          for (int s = 0; s < S::S; ++s) {
-            uint4 bf[S::NJ];
+          for (int j = 0; j < S::NJ; ++j) {
 #pragma unroll
-            for (int j = 0; j < S::NJ; ++j) {
-              bf[j] = cw[(j0 + j) * 8 * S::H + 4 * (s ^ sg)];
-            }
-#pragma unroll
-            for (int j = 0; j < S::NJ; ++j) {
-#pragma unroll
-              for (int i = 0; i < S::MT; ++i) {
-                mma_tf32(acc[i][j], al[i][s], bf[j].x, bf[j].y);
-                mma_tf32(acc[i][j], ah[i][s], bf[j].z, bf[j].w);
-                mma_tf32(acc[i][j], ah[i][s], bf[j].x, bf[j].y);
-              }
+            for (int i = 0; i < S::MT; ++i) {
+              mma_tf32(acc[i][j], al[i][s], bf[j].x, bf[j].y);
+              mma_tf32(acc[i][j], ah[i][s], bf[j].z, bf[j].w);
+              mma_tf32(acc[i][j], ah[i][s], bf[j].x, bf[j].y);
             }
           }
         }
@@ -383,7 +304,7 @@ grouped_round_kernel(const float* __restrict__ xg,
   }
 }
 
-template <int M, bool FAST>
+template <int M>
 cudaError_t launch(const float* xg, const float* c, const float* cc,
                    int32_t* idx, int B, int N, int K, cudaStream_t s) {
   using S = Shape<M>;
@@ -399,8 +320,7 @@ cudaError_t launch(const float* xg, const float* c, const float* cc,
   // Set at every launch on purpose: the attribute belongs to the current
   // device, which may differ from the last launch's.
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_round_kernel<M, FAST>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grouped_round_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -409,7 +329,7 @@ cudaError_t launch(const float* xg, const float* c, const float* cc,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, grouped_round_kernel<M, FAST>, kThreads, bytes);
+      &per_sm, grouped_round_kernel<M>, kThreads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm == 0) return cudaErrorInvalidConfiguration;
   // Every block resident at once: B rows of row-tile walkers. The
@@ -418,45 +338,36 @@ cudaError_t launch(const float* xg, const float* c, const float* cc,
   const int fill = per_sm * sms / B;
   const int walkers = fill < 1 ? 1 : fill < n_tiles ? fill : n_tiles;
   const dim3 grid(walkers, B);
-  grouped_round_kernel<M, FAST><<<grid, kThreads, bytes, s>>>(
+  grouped_round_kernel<M><<<grid, kThreads, bytes, s>>>(
       xg, c, cc, idx, N, K, kt);
   return cudaGetLastError();
-}
-
-template <bool FAST>
-cudaError_t launch_width(const float* xg, const float* c, const float* cc,
-                         int32_t* idx, int B, int N, int K, int M,
-                         cudaStream_t s) {
-  switch (M) {
-    case 8:
-      return launch<8, FAST>(xg, c, cc, idx, B, N, K, s);
-    case 16:
-      return launch<16, FAST>(xg, c, cc, idx, B, N, K, s);
-    case 32:
-      return launch<32, FAST>(xg, c, cc, idx, B, N, K, s);
-    case 64:
-      return launch<64, FAST>(xg, c, cc, idx, B, N, K, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // xg [GG, N, 128] f32, c [B, K, M] f32, cc [B, K] f32 -> idx [B, N] int32.
 // M in {8, 16, 32, 64}, GG = ceil(B / (128 / M)); xg and c 16-byte aligned.
-// fast: the fast_math variant (one bf16 pass). All on the current device
-// (the caller selects it). Returns a cudaError_t.
+// All on the current device (the caller selects it). Returns a
+// cudaError_t.
 extern "C" int fdb_lloyd_grouped(const void* xg, const void* c,
                                  const void* cc, void* idx, int B, int GG,
-                                 int N, int K, int M, int fast,
-                                 void* stream) {
+                                 int N, int K, int M, void* stream) {
   (void)GG;  // implied by B and M; the wrapper checks it
   const auto* xf = static_cast<const float*>(xg);
   const auto* cf = static_cast<const float*>(c);
   const auto* ccf = static_cast<const float*>(cc);
   auto* idxi = static_cast<int32_t*>(idx);
   const cudaStream_t s = (cudaStream_t)stream;
-  return fast ? launch_width<true>(xf, cf, ccf, idxi, B, N, K, M, s)
-              : launch_width<false>(xf, cf, ccf, idxi, B, N, K, M, s);
+  switch (M) {
+    case 8:
+      return launch<8>(xf, cf, ccf, idxi, B, N, K, s);
+    case 16:
+      return launch<16>(xf, cf, ccf, idxi, B, N, K, s);
+    case 32:
+      return launch<32>(xf, cf, ccf, idxi, B, N, K, s);
+    case 64:
+      return launch<64>(xf, cf, ccf, idxi, B, N, K, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

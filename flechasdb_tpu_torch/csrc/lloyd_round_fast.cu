@@ -95,7 +95,6 @@ namespace {
 
 constexpr int kBand = 64;       // rows a consumer warpgroup (wgmma M)
 constexpr int kTile = 64;       // centroids a tile (wgmma N)
-constexpr int kBox = 64 * 128;  // bytes of a TMA box: 64 rows of 128 bytes
 constexpr int kMaxStages = 8;
 constexpr int kSmemMax = 232448;
 constexpr int kNC = 3;           // consumer warpgroups
@@ -192,41 +191,6 @@ __device__ __forceinline__ void issue(float (&d)[32],
   for (int s = 0; s < KS; ++s) {
     const uint64_t step = (uint64_t)(((s / 4) * kBox + (s % 4) * 32) >> 4);
     wgmma64(d, a[s], desc + step, fresh && s == 0 ? 0u : 1u);
-  }
-}
-
-// The band's chunk as A fragments, rounded to bf16 once. The x slot holds
-// the band as KS / 2 boxes of 64 rows x 32 floats, each row 128 bytes
-// whose 16-byte unit u sits at u ^ (row % 8). Register e of step s holds
-// row 16 w4 + g + 8 (e & 1), columns 16 s + 2 t + 8 (e >> 1) and the next,
-// the lower column in the low half.
-template <int KS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4],
-                                       const unsigned char* band, int w4,
-                                       int g, int t) {
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = 16 * w4 + g + 8 * (e & 1);
-      const int col = 16 * (s % 2) + 2 * t + 8 * (e >> 1);  // in box s / 2
-      const int unit = (col >> 2) ^ (row & 7);
-      const float2 v = *reinterpret_cast<const float2*>(
-          band + (s / 2) * kBox + row * 128 + unit * 16 + (col & 3) * 4);
-      a[s][e] = pack_bf16(v.x, v.y);
-    }
-  }
-}
-
-// The 16 |c|^2 of this thread's columns of a tile, 8 j + 2 t + h, loaded
-// before the wait for the tile's products so that their latency hides
-// behind it.
-__device__ __forceinline__ void load_cc(float2 (&ck)[8],
-                                        const float* __restrict__ cct,
-                                        int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    ck[j] = __ldg(reinterpret_cast<const float2*>(cct + 8 * j + 2 * t));
   }
 }
 

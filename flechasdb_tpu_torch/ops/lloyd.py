@@ -1,7 +1,8 @@
 """The Lloyd round: K-B (``csrc/lloyd_round.cu``) over ``[B, N, M]``
 data, K-C (``csrc/lloyd_grouped.cu``) over division-grouped data, the
-cluster-sum pass after either (``csrc/cluster_sums.cu``), and their plain
-versions.
+cluster-sum pass after either (``csrc/cluster_sums.cu``), the
+``fast_math`` variants of both (K-B fast, ``csrc/lloyd_round_fast.cu``;
+K-C fast, ``csrc/lloyd_grouped_fast.cu``), and their plain versions.
 
 :func:`lloyd_round` keeps the contract of the JAX package's
 ``ops/pallas_kmeans.lloyd_round``: ``x [B, N, M]`` f32 and ``centroids
@@ -50,9 +51,14 @@ the f32 centroids) and the sums add the bf16-rounded x. On a CUDA tensor
 the centroids staged once in bf16, as :func:`stage_centroids`, then
 ``wgmma`` with the centroid tiles streamed by the TMA, on the tiling
 :func:`fast_tiling` picks), counted under ``lloyd_round_fast``;
-:func:`lloyd_round_grouped` launches K-C's fast variant (``mma.sync``
-bf16), counted under ``lloyd_grouped_fast``; both then run the
-cluster-sum pass's fast variant. On a CPU tensor the plain version
+:func:`lloyd_round_grouped` launches K-C fast
+(``csrc/lloyd_grouped_fast.cu``: the centroids staged once a round as
+:func:`stage_grouped_centroids`, each grouped row read once by the TMA for
+all its divisions and held as bf16 ``wgmma`` A fragments, each division's
+k16 steps against K-B fast's ring of centroid tiles, on the tiling
+:func:`grouped_fast_tiling` picks; at m ≥ 16 its picks are K-B fast's on
+the ungrouped data), counted under ``lloyd_grouped_fast``; both then run
+the cluster-sum pass's fast variant. On a CPU tensor the plain version
 computes the same function.
 """
 
@@ -418,31 +424,42 @@ def lloyd_round_grouped(xg: torch.Tensor, centroids: torch.Tensor,
     if xg.device.type != "cuda":
         raise ValueError(f"unsupported device: {xg.device}")
     b, k, m = centroids.shape
-    gg, n, _ = xg.shape
+    n = xg.shape[1]
     if m not in GROUPED_WIDTHS:
         raise ValueError(f"K-C takes m in {GROUPED_WIDTHS}, got {m}")
     if k == 0:
         raise ValueError("lloyd_round_grouped needs at least one centroid")
-    idx = torch.empty((b, n), dtype=torch.int32, device=xg.device)
     if b == 0 or n == 0:
-        return (idx, torch.zeros((b, k, m), device=xg.device),
+        return (torch.empty((b, n), dtype=torch.int32, device=xg.device),
+                torch.zeros((b, k, m), device=xg.device),
                 torch.zeros((b, k), device=xg.device))
     if xg.data_ptr() % 16:
         xg = xg.clone()
+    idx = (_assign_grouped_fast(xg, centroids)[0] if fast_math
+           else _assign_grouped(xg, centroids))
+    return (idx, *_launch_sums(xg, idx, b, n, k, m, GROUP_WIDTH // m,
+                               fast_math))
+
+
+def _assign_grouped(xg: torch.Tensor, centroids: torch.Tensor,
+                    ) -> torch.Tensor:
+    """K-C's assignment on CUDA tensors (checked by the caller, B, N, K >
+    0, ``xg`` 16-byte aligned): ``idx [B, N]``, counted once. Never waits
+    on the device."""
     if centroids.data_ptr() % 16:
         centroids = centroids.clone()
+    b, k, m = centroids.shape
+    gg, n, _ = xg.shape
+    idx = torch.empty((b, n), dtype=torch.int32, device=xg.device)
     cc = (centroids * centroids).sum(dim=-1).contiguous()
     lib = _kernels.load()
     with torch.cuda.device(xg.device):
         rc = lib.fdb_lloyd_grouped(
             xg.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
-            idx.data_ptr(), b, gg, n, k, m, int(fast_math),
-            _kernels.stream_of(xg))
-    name = "lloyd_grouped_fast" if fast_math else "lloyd_grouped"
-    _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
-    return (idx, *_launch_sums(xg, idx, b, n, k, m, GROUP_WIDTH // m,
-                               fast_math))
+            idx.data_ptr(), b, gg, n, k, m, _kernels.stream_of(xg))
+    _kernels.check(rc, "lloyd_grouped")
+    _kernels.LAUNCHES["lloyd_grouped"] += 1
+    return idx
 
 
 #: K-B fast (``csrc/lloyd_round_fast.cu``): rows a block (three consumer
@@ -545,6 +562,112 @@ def _assign_fast(x: torch.Tensor, centroids: torch.Tensor,
             tiling.chunk, tiling.stages, _kernels.stream_of(x))
     _kernels.check(rc, "lloyd_round_fast")
     _kernels.LAUNCHES["lloyd_round_fast"] += 1
+    return idx, cs, ccp
+
+
+#: K-C fast (``csrc/lloyd_grouped_fast.cu``): rows a block (three consumer
+#: warpgroups of 64), and a ring slot's bytes, one tile of 64 staged rows
+#: of 128 bf16.
+_GROUPED_ROWS = 192
+_GROUPED_STAGE = _FAST_TILE * GROUP_WIDTH * 2
+
+
+class GroupedFastTiling(NamedTuple):
+    """How K-C fast runs on a shape (:func:`grouped_fast_tiling`): ``rows``
+    a row block of one group (twelve consumer warps of 16), ``groups`` of
+    them ``row_blocks`` in all; ``g`` divisions a group, taken
+    ``per_pass`` at a time in ``passes`` over the centroid tiles; the
+    staged centroids ``[groups, kp, 128]`` and norms ``[groups·g, kp]``;
+    ``stages`` ring slots of one tile; ``smem`` bytes of shared memory a
+    block."""
+    rows: int
+    row_blocks: int
+    groups: int
+    g: int
+    per_pass: int
+    passes: int
+    kp: int
+    stages: int
+    smem: int
+
+
+def grouped_fast_tiling(b: int, n: int, k: int, m: int) -> GroupedFastTiling:
+    """K-C fast's tiling for ``b`` divisions of width ``m`` (8, 16, 32 or
+    64) over ``n`` grouped rows and ``k`` centroids. A pure function of its
+    arguments (no device query), so the order of every product and compare,
+    and so the bits, are the same on every card. Kp is k padded to the
+    64-centroid tile; a block holds the f32 x slot of its 192 rows (96 KB,
+    K-B fast's resident slot at Mp = 128) and as many ring slots, up to 8,
+    as its shared memory leaves."""
+    if m not in GROUPED_WIDTHS:
+        raise ValueError(f"K-C fast takes m in {GROUPED_WIDTHS}, got {m}")
+    g = GROUP_WIDTH // m
+    gg = -(-b // g)
+    # Divisions a pass over the centroid tiles: their running minima are
+    # what a thread holds beside its fragments and two accumulator sets
+    # (eight a pass spilled registers at m = 8, 16 and 32).
+    per_pass = 4 if m <= 16 else 2
+    kp = -(-k // _FAST_TILE) * _FAST_TILE
+    # The alignment slack, the x slot (f32) and its two barriers; a ring
+    # slot and its two barriers.
+    fixed = 1024 + _GROUPED_ROWS * GROUP_WIDTH * 4 + 16
+    stage = _GROUPED_STAGE + 16
+    stages = min(_FAST_STAGES, (_SMEM_MAX - fixed) // stage)
+    return GroupedFastTiling(_GROUPED_ROWS, gg * -(-n // _GROUPED_ROWS), gg, g,
+                             per_pass, g // per_pass, kp, stages,
+                             fixed + stages * stage)
+
+
+def stage_grouped_centroids(centroids: torch.Tensor,
+                            tiling: GroupedFastTiling,
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``centroids [B, K, m]`` f32 → ``(cs [G, Kp, 128]`` bf16: row k of
+    group j holds the k-th centroid of each of divisions ``j·g … j·g + g −
+    1`` side by side, division i in columns ``i·m … i·m + m − 1``, rounded
+    to nearest even as ``astype(bfloat16)`` rounds, zeros in the pad
+    divisions and past K; ``ccp [G·g, Kp]`` f32, ``‖c‖²`` of the f32
+    centroids, +inf in the pad divisions and past K). K-C fast's operands,
+    made once a round, as the TPU kernel makes its block-diagonal ``bdhi``
+    and ``cc`` outside its grid (``cs`` is ``bdhi`` with its zeros
+    compacted away): the plain version of the kernel's own staging, which
+    adds each ``‖c‖²`` in another fixed order."""
+    b, k, m = centroids.shape
+    gg, g, kp = tiling.groups, tiling.g, tiling.kp
+    dev = centroids.device
+    padded = torch.zeros((gg * g, kp, m), dtype=torch.float32, device=dev)
+    padded[:b, :k] = centroids
+    cs = padded.reshape(gg, g, kp, m).transpose(1, 2) \
+        .reshape(gg, kp, GROUP_WIDTH).to(torch.bfloat16)
+    ccp = torch.full((gg * g, kp), float("inf"), dtype=torch.float32,
+                     device=dev)
+    ccp[:b, :k] = (centroids * centroids).sum(dim=-1)
+    return cs, ccp
+
+
+def _assign_grouped_fast(xg: torch.Tensor, centroids: torch.Tensor,
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K-C fast's assignment on CUDA tensors (checked by the caller, B, N,
+    K > 0, ``xg`` 16-byte aligned): one call stages the centroids on the
+    card into ``cs`` and ``ccp`` (as :func:`stage_grouped_centroids`) and
+    launches the kernel; counted once. Returns ``(idx, cs, ccp)``. Never
+    waits on the device."""
+    b, k, m = centroids.shape
+    gg, n, _ = xg.shape
+    tiling = grouped_fast_tiling(b, n, k, m)
+    dev = xg.device
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    cs = torch.empty((gg, tiling.kp, GROUP_WIDTH), dtype=torch.bfloat16,
+                     device=dev)
+    ccp = torch.empty((gg * tiling.g, tiling.kp), dtype=torch.float32,
+                      device=dev)
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.fdb_lloyd_grouped_fast(
+            xg.data_ptr(), centroids.data_ptr(), cs.data_ptr(),
+            ccp.data_ptr(), idx.data_ptr(), b, gg, n, k, m, tiling.kp,
+            tiling.stages, _kernels.stream_of(xg))
+    _kernels.check(rc, "lloyd_grouped_fast")
+    _kernels.LAUNCHES["lloyd_grouped_fast"] += 1
     return idx, cs, ccp
 
 

@@ -79,29 +79,42 @@ SHAPES = [("SIFT coarse", 1, cs.SIFT_N, cs.SIFT_P, cs.SIFT_M),
           ("headline coarse", 1, cs.N, cs.P, cs.M)]
 
 
-def build(nvcc: str, flags) -> dict:
-    """Each variant's library, the variants compiled in parallel."""
-    text = SRC.read_text()
-    BUILD.mkdir(parents=True, exist_ok=True)
+def build_variants(nvcc: str, flags, src_path: Path, variants, out: Path,
+                   tag: str = "") -> dict:
+    """Each variant of ``src_path`` (``(name, [(text, replacement),
+    ...])``) built into ``out`` as a library of its own, the variants
+    compiled in parallel; ``{name: (library path, compiler output)}``."""
+    text = src_path.read_text()
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS:
+    for name, subs in variants:
         src = text
         for old, new in subs:
             if src.count(old) != 1:
-                raise SystemExit(f"variant {name}: its text is not in {SRC}"
-                                 " once; update the variant")
+                raise SystemExit(f"variant {name}: its text is not in "
+                                 f"{src_path} once; update the variant")
             src = src.replace(old, new)
-        cu, so = BUILD / f"{name}.cu", BUILD / f"{name}.so"
+        cu, so = out / f"{tag}{name}.cu", out / f"{tag}{name}.so"
         cu.write_text(src)
         procs[name] = (subprocess.Popen(
-            [nvcc, *flags, "-I", str(SRC.parent), "-o", str(so), str(cu)],
+            [nvcc, *flags, "-I", str(src_path.parent), "-o", str(so),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
+    built = {}
     for name, (proc, so) in procs.items():
-        out = proc.communicate()[0]
+        log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"variant {name} did not build:\n{out}")
-        lib = ctypes.CDLL(str(so.resolve()))
+            raise SystemExit(f"variant {name} did not build:\n{log}")
+        built[name] = (so.resolve(), log)
+    return built
+
+
+def build(nvcc: str, flags) -> dict:
+    """Each variant's library, the variants compiled in parallel."""
+    libs = {}
+    for name, (so, _) in build_variants(nvcc, flags, SRC, VARIANTS,
+                                        BUILD).items():
+        lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fdb_lloyd_round_fast.argtypes = [p, p, p, p, p] + [i] * 8 + [p]
         lib.fdb_lloyd_round_fast.restype = i

@@ -22,8 +22,10 @@ means over back-to-back warm calls, median of five. Beside each round,
 its assignment kernel alone by device time (``chip_smoke.
 kernel_device_ms``: ``torch.profiler`` over back-to-back rounds, the
 launches of the kernel whose name holds ``assign_fast_kernel`` or
-``assign_kernel`` (K-B, either tree) or ``grouped_round_kernel`` (K-C);
-this tree's K-B fast also its staging, ``stage_kernel``, apart),
+``assign_kernel`` (K-B, either tree), ``grouped_round_kernel`` (K-C,
+and K-C fast before it had a kernel of its own) or
+``grouped_fast_assign`` (this tree's K-C fast); this tree's fast kernels
+also their staging, ``stage_kernel`` or ``grouped_fast_staging``, apart),
 against its bound (x and the centroids read once, idx written; 2 B N K M
 operations at the units' rate). In every turn the
 cluster-sum pass is also timed alone on this tree's assignment, as the
@@ -46,8 +48,9 @@ from pathlib import Path
 import chip_smoke as cs
 import profile_scan
 
-# (label, B, N, K, M, grouped, fast, skew): phase 1's timed shapes, and
-# K-B fast at the skewed SIFT coarse shape.
+# (label, B, N, K, M, grouped, fast, skew): phase 1's timed shapes, K-B
+# fast at the skewed SIFT coarse shape, and K-C fast at phase 1's other
+# shapes.
 SHAPES = [
     ("K-B PQ", cs.D, cs.N, cs.C, cs.M // cs.D, False, False, False),
     ("K-B coarse", 1, cs.N, cs.P, cs.M, False, False, False),
@@ -65,6 +68,10 @@ SHAPES = [
      False, True, True),
     ("K-C SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, False, False),
     ("K-C fast SIFT PQ", 8, cs.SIFT_N, cs.C, 16, True, True, False),
+    ("K-C fast B=60", 60, cs.N, cs.C, 16, True, True, False),
+    ("K-C fast m=8", 16, cs.N, cs.C, 8, True, True, False),
+    ("K-C fast m=32", 4, cs.N, cs.C, 32, True, True, False),
+    ("K-C fast m=64 K=300", 2, cs.N, 300, 64, True, True, False),
 ]
 
 
@@ -108,18 +115,22 @@ def run(torch, lloyd, this, x, xg, c, grouped, fast, mine: bool) -> dict:
     cs.require(within or not mine, f"sums disagree with the f64 sums: {err}")
     cs.require(same or not mine, "two calls differ")
     del idx, sums, counts, want, flat
-    # The assignment kernel: K-C's, K-B's or (this tree) K-B fast's and
-    # its staging. "assign_kernel" is no part of "assign_fast_kernel".
-    keys = (("grouped_round_kernel",) if grouped else
+    # The assignment kernel: K-C's (either tree's K-C fast before this
+    # one), this tree's K-C fast and its staging, K-B's, or this tree's
+    # K-B fast and its staging. "assign_kernel" is no part of
+    # "assign_fast_kernel".
+    keys = (("grouped_round_kernel", "grouped_fast_assign",
+             "grouped_fast_staging") if grouped else
             ("assign_kernel", "assign_fast_kernel", "stage_kernel"))
+    stage = keys[2]
     by, calls = cs.profile_kernels(torch, call, keys)
-    first = next(k for k in keys if calls[k] and k != "stage_kernel")
+    first = next(k for k in keys if calls[k] and k != stage)
     out = {"ms": cs.cuda_ms(torch, call, 5),
            "assign_ms": by[first] / calls[first] / 1e3,
            "reproducible": same, "max_abs_err_f64": err,
            "within_tolerance": within}
-    if calls.get("stage_kernel"):  # K-B fast's staging, a launch
-        out["stage_ms"] = by["stage_kernel"] / calls["stage_kernel"] / 1e3
+    if calls.get(stage):  # a fast kernel's staging, a launch
+        out["stage_ms"] = by[stage] / calls[stage] / 1e3
     return out
 
 

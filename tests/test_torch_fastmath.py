@@ -330,28 +330,58 @@ def test_fast_kernel_matches_plain_on_card(cuda, b, n, k, m, dup):
                                          (10, 777, 9, 16, False),
                                          (8, 3000, 256, 16, True),
                                          (4, 300, 1, 8, False),
-                                         (2, 1000, 4096, 16, False)])
+                                         (2, 1000, 4096, 16, False),
+                                         (8, 3000, 1024, 16, (200, 1023)),
+                                         (8, 1, 256, 16, False),
+                                         (4, 1001, 256, 32, False),
+                                         (5, 2000, 256, 8, False)])
 def test_fast_grouped_kernel_matches_plain_on_card(cuda, b, n, k, m, dup):
+    """K-C fast against the plain fast round, two calls bit-equal. ``dup``:
+    centroids 7 and K-1 (True), or those given (in other 64-centroid
+    tiles than centroid 3), are copies of centroid 3 and must never be
+    picked. The shapes take N=1, N and B off the kernel's row blocks and
+    groups (B=5 at m=8, 16 divisions a group), and every width."""
     rng = np.random.default_rng(n + k + m)
     x = rng.standard_normal((b, n, m)).astype(np.float32)
     c = x[:, rng.integers(0, n, k)].copy()
-    if dup:
-        c[:, 7] = c[:, 3]
-        c[:, k - 1] = c[:, 3]
+    twins = [7, k - 1] if dup is True else list(dup or ())
+    for j in twins:
+        c[:, j] = c[:, 3]
     xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
     xg = lloyd.regroup_divisions(xt)
     before = dict(_kernels.LAUNCHES)
-    idx, sums, counts = (a.cpu().numpy() for a in lloyd.lloyd_round_grouped(
-        xg, ct, fast_math=True))
+    first = lloyd.lloyd_round_grouped(xg, ct, fast_math=True)
+    again = lloyd.lloyd_round_grouped(xg, ct, fast_math=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+    idx, sums, counts = (a.cpu().numpy() for a in first)
     assert _kernels.LAUNCHES["lloyd_grouped_fast"] == \
-        before["lloyd_grouped_fast"] + 1
+        before["lloyd_grouped_fast"] + 2
     assert _kernels.LAUNCHES["lloyd_grouped"] == before["lloyd_grouped"]
     ref_idx = lloyd.lloyd_round_grouped_plain(xg, ct, fast_math=True)[0] \
         .cpu().numpy()
     _check_fast_round(x, c, idx, sums, counts, ref_idx)
     np.testing.assert_array_equal(counts.sum(-1), np.full(b, n))
-    if dup:
-        assert not np.isin(idx, [7, k - 1]).any()
+    if twins:
+        assert not np.isin(idx, twins).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,m", [(8, 5000, 256, 16), (4, 3000, 300, 32),
+                                     (8, 2000, 1024, 16)])
+def test_fast_grouped_picks_equal_kb_fast_on_card(cuda, b, n, k, m):
+    """Where a division starts a k16 step (m >= 16), K-C fast issues its
+    steps as K-B fast does on the ungrouped data and stages its norms in
+    K-B fast's order: the same distances, so the same picks, row for
+    row."""
+    rng = np.random.default_rng(b * n + m)
+    x = rng.standard_normal((b, n, m)).astype(np.float32)
+    c = x[:, rng.integers(0, n, k)].copy()
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
+    got = lloyd.lloyd_round_grouped(lloyd.regroup_divisions(xt), ct,
+                                    fast_math=True)[0]
+    want = lloyd.lloyd_round(xt, ct, fast_math=True)[0]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
