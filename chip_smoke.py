@@ -38,8 +38,10 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    M=264 with K=257, past a tile pair), K=257 at M=128, and one row
    (N=1); its
    tiling (``ops.lloyd.fast_tiling``) is printed at each shape. K-C fast
-   (``csrc/lloyd_grouped_fast.cu``, ``wgmma`` on each grouped row read once
-   by the TMA) at the SIFT PQ shape, m=8, m=32, m=64 (K=300) and duplicated
+   (``csrc/lloyd_grouped_fast.cu``: each grouped row read once by the
+   TMA, a warp's own bf16 ``mma.sync`` on register fragments, the centroid
+   fragments by ``ldmatrix``) at the SIFT PQ shape, m=8, m=32, m=64
+   (K=300) and duplicated
    centroids, at K=256 and across tiles at K=1024 (copies of centroid 3 at
    7, 200 and 1023); its staging on the card bit-equal to
    ``stage_grouped_centroids``, its tiling (``ops.lloyd.
@@ -65,15 +67,22 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ungrouped data beside K-C; at each timed shape the cluster-sum pass
    is also timed alone as the rounds launch it (``_launch_sums``: no
    host sync in the timed call; CUDA events here, its device time in
-   phase 9), with its plain version and ``index_add_``, and the route
+   phase 10), with its plain version and ``index_add_``, and the route
    and tiling it took (``ops.lloyd.sum_tiling``) are printed. At K-B's
    PQ shape and K-C's SIFT PQ shape, full and fast, the dense route's
    sums and counts must equal ``cluster_sums_ordered``'s (its order in
    plain PyTorch) bit for bit. The pass's sort route, which takes the
    shapes above the dense route's K limit, is held at K=8192, N=50k,
    M=8, full and fast: two calls bit-equal, counts ``bincount``'s, sums
-   within the tolerance of the f64 sums. K-A is only checked here and
-   timed in phase 9.
+   within the tolerance of the f64 sums. The Deep10M path's shapes
+   (phase 9), whose tilings (``sum_tiling``, ``fast_tiling``) are printed:
+   K-B and K-B fast at the capped coarse fit (B=1, N=2,097,152, K=4096,
+   M=96; the pass's dense route at S=8), at the PQ fit (B=8, N=1,048,576,
+   K=256, m=12: 12 does not divide 128, so K-B and not K-C) and at
+   K=4096 with copies of centroid 3 at 7, 200 and 4095 (N=65,536), two
+   calls bit-equal, and at the first two the dense route's sums and
+   counts equal to ``cluster_sums_ordered``'s. K-A is only checked here
+   and timed in phase 10.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -206,7 +215,36 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    the CPU up to ties; 64 corpus rows must find themselves first
    (``rerank=100``); the build time and recall@10 against exact ground
    truth are printed.
-9. K-A's times and the cluster-sum pass's, after the paths, so that
+9. The Deep10M shape: the JAX package's scale-up
+   (``benchmarks/deep10m.py:31-165``), nothing cut. 10,000,000 x 96 f32
+   rows and 200 queries drawn on the card by ``synth.gmm_pair_device``
+   (1024 components, intrinsic 12), the earlier phases' device tensors
+   freed first; the exact top 10 of each query on the card
+   (``ops.exact.exact_topk``). ``parallel.build.build_staged(x, 4096, 8,
+   256, seed)`` twice, with the launch counts zeroed before: the arrays
+   bit-equal, K-B launched with one cluster-sum pass a round (the coarse
+   fit on the 2,097,152-row cap, one final K-B round over all rows, the
+   PQ fit on 1,048,576 residuals at m=12), the second call's parts timed
+   at its events (the card synchronized there): coarse seeding, coarse
+   rounds, the final assignment, sample residuals, the PQ fit,
+   ``_encode_chunked``; the final assignment's round then timed alone;
+   10,000 rows' partitions and codes equal to ``ops.encode.encode``'s up
+   to near-ties. Serving: ``ops.bucketed.bucketize`` (packed), then
+   ``query_bucketed`` at nprobe 8, 32 and 128 in query chunks sized as
+   the JAX script sizes them (K-A), recall@10 not falling as nprobe
+   grows, the bucket stats and the batch times; 64 queries at nprobe=32
+   equal to the CPU plain path on the same buckets. The streamed build:
+   the corpus copied to the host behind a read counter,
+   ``StreamingDatabaseBuilder(src, device="cuda")`` with the same P, D,
+   C and seed: one gather of at most 2,097,152 sorted unique rows, then
+   the encode chunks of at most ``CHUNK_BYTES // (4·96)`` rows in order;
+   its parts timed (``_make_uuids``, the gather, both fits, the encode
+   stream); ``Database.query_batch`` of the 200 queries at nprobe=32 on
+   the policy's layout, recall@10 within 0.03 of the staged build's, 64
+   equal to the CPU path; ``rerank=`` and ``reconstruct`` raising
+   ``InvalidArgs``. The data's, the builds' and the streamed leg's peak
+   device memory is printed.
+10. K-A's times and the cluster-sum pass's, after the paths, so that
    ``torch.profiler`` has not run in the process while they were timed.
    The pass: its device time a call at each of phase 1's timed shapes
    (``torch.profiler``'s CUDA activity for its kernels over back-to-back
@@ -223,7 +261,7 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
    SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's,
-   phase 8's the f64 build's).
+   phase 8's the f64 build's, phase 9's the Deep10M staged build's).
    K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
@@ -234,17 +272,19 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    plain version's is a CUDA-event mean, as in phase 1.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phases 4, 5, 6, 7 and 8) and read just after; every kernel a
+queries, phases 4, 5, 6, 7, 8 and 9) and read just after; every kernel a
 path runs must have run, and every Lloyd round must have been followed
 by one cluster-sum pass. The line before the last is the kernels' JSON
 record: a row per TPU kernel of the JAX package, and one for the
 cluster-sum pass (the sum halves of the two Lloyd kernels; its
 ``library_ms`` is ``index_add_`` of the same sums), with its
-counterpart's launches over the paths (phases 2 to 8), its time
+counterpart's launches over the paths (phases 2 to 9), its time
 (``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``; K-B fast's, K-C's and K-C fast's
 ``assign_ms`` and ``assign_bound_ms``, the assignment alone at K-B's PQ
-shape and K-C's SIFT PQ shape), its plain
+shape and K-C's SIFT PQ shape; K-B's and K-B fast's ``deep10m``, their
+rounds at phase 1's Deep10M shapes beside their bounds and the pass's
+device time there, and K-B's final assignment round of phase 9), its plain
 version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
@@ -260,6 +300,7 @@ non-zero with no result line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import statistics
@@ -291,6 +332,12 @@ N_RECALL = 1000                  # headline queries for recall
 # The f64 build: phase 3's first rows, cut from 100,000 so that the host
 # oracle (numpy, up to 100 rounds a fit) keeps phase 8 within a minute.
 F64_N, F64_P = 20_000, 100
+# Phase 9: the JAX package's Deep10M scale-up (benchmarks/deep10m.py:31-165),
+# nothing cut; the coarse and PQ fits' capped samples (parallel/build.py's
+# COARSE_TRAIN_CAP, PQ_TRAIN_CAP) are phase 1's shapes too.
+DEEP_N, DEEP_NQ, DEEP_M, DEEP_P, DEEP_D = 10_000_000, 200, 96, 4096, 8
+DEEP_NPROBES, DEEP_NPROBE, DEEP_CHECK = (8, 32, 128), 32, 10_000
+DEEP_COARSE_N, DEEP_PQ_N = 2 << 20, 1 << 20
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
@@ -489,7 +536,9 @@ def setup(torch):
 
 
 def kernel_ptxas(build_log: str) -> list:
-    """From ``ptxas -v``: a line per K-C and K-C fast instance (its
+    """From ``ptxas -v``: a line per K-B instance (float4 or scalar
+    loads), per instance of the pass's dense ``tile_sums`` (fast, copy
+    path, listed rows, columns a lane), per K-C and K-C fast instance (its
     subvector width M) and per K-B fast instance (k16 steps a chunk,
     chunked or resident): registers, stack frame and spills; the fast
     kernels' shared memory is dynamic (``ops.lloyd.fast_tiling``'s and
@@ -505,10 +554,24 @@ def kernel_ptxas(build_log: str) -> list:
         elif name and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line)
             regs = regs.group(1) if regs else "?"
+            kb = re.search(r"\d+assign_kernelILb([01])E", name)
+            ts = re.search(r"tile_sumsILb([01])ELi(\d)ELb([01])ELi(\d)E",
+                           name)
             w = re.search(r"grouped_round_kernelILi(\d+)EE", name)
             f = re.search(r"assign_fast_kernelILi(\d+)ELb([01])E", name)
             cf = re.search(r"grouped_fast_assignILi(\d+)EE", name)
-            if w:
+            if kb:
+                loads = "float4" if kb.group(1) == "1" else "scalar"
+                out.append(f"K-B ptxas {loads} loads: {regs} registers, "
+                           f"{frame}")
+            elif ts:
+                fast_, copy, listed, cpt = ts.groups()
+                out.append(f"pass ptxas tile_sums "
+                           f"{'fast ' if fast_ == '1' else ''}"
+                           f"{('bulk', 'tensor', 'scalar')[int(copy)]} copy"
+                           f"{', listed' if listed == '1' else ''}, {cpt} "
+                           f"column(s) a lane: {regs} registers, {frame}")
+            elif w:
                 out.append(f"K-C ptxas M={w.group(1)}: {regs} registers, "
                            f"{frame}")
             elif cf:
@@ -609,7 +672,7 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
     drifts beyond the tolerance by itself (its error is printed).
     ``time_it`` also times the cluster-sum pass alone (``_launch_sums``,
     which holds no host sync; CUDA events here, its device time from
-    ``torch.profiler`` in phase 9, through the returned case) and
+    ``torch.profiler`` in phase 10, through the returned case) and
     ``index_add_``, the one PyTorch call that forms the same sums, and
     logs the route and tiling the pass took. ``ordered``: the sums and
     counts must equal ``cluster_sums_ordered``'s bit for bit (the dense
@@ -756,7 +819,7 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
             "relative")
     if time_it and (fast or grouped):
         # The assignment alone (a fast kernel's staging apart), timed by
-        # device time in phase 9: x and the centroids read once, idx
+        # device time in phase 10: x and the centroids read once, idx
         # written; 2 B N K M operations at the units' rate.
         rate, ops = ((BF16_FLOPS, "operations (bf16 tensor cores)") if fast
                      else (TF32_FLOPS, "operations (TF32 tensor cores)"))
@@ -783,7 +846,8 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
         # x once, idx once; sums and counts written.
         sums_bound = bound(x_bytes + 4 * (b * n + b * k * m + b * k),
                            float(b * n * m))
-        sums_case = {"name": name, "route": tiling.route,
+        sums_case = {"name": name, "shape": f"B={b} N={n} K={k} M={m}",
+                     "route": tiling.route,
                      "tiling": tiling._asdict(), "events_ms": sums_ms,
                      "plain_ms": sums_plain_ms, "bound": sums_bound,
                      "library_ms": library_ms, "launch": launch}
@@ -2481,6 +2545,393 @@ def tiers_run(torch, seed: int, head: dict, sift: dict, work: Path):
     return out
 
 
+# --- phase 9: the Deep10M shape ----------------------------------------------
+
+def widen(torch, t):
+    """``t`` as int32 where it is uint16 (PyTorch's CUDA support for
+    uint16 is partial), before it is indexed or compared; as it is
+    otherwise."""
+    return t.int() if t.dtype == torch.uint16 else t
+
+
+class ReadCounter:
+    """A host array that records every read of the streamed build:
+    ``("rows", count, sorted and unique)`` for a gather, ``("slice", lo,
+    hi)`` for a contiguous read."""
+
+    def __init__(self, x):
+        self._x = x
+        self.shape = x.shape
+        self.reads = []
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            self.reads.append(("slice", key.start, key.stop))
+        else:
+            rows = np.asarray(key)
+            self.reads.append(("rows", len(rows),
+                               bool((np.diff(rows) > 0).all())))
+        return self._x[key]
+
+
+class PartTimer:
+    """An event handler that synchronizes the card at each build event and
+    keeps ``(event name, inner event name or None, host time)``."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.marks = [("start", None, time.perf_counter())]
+
+    def __call__(self, e):
+        self._torch.cuda.synchronize()
+        inner = getattr(e, "event", None)
+        self.marks.append((type(e).__name__,
+                           None if inner is None else type(inner).__name__,
+                           time.perf_counter()))
+
+    def at(self, name, nth=0):
+        """The time of the ``nth`` event so named (-1: the last)."""
+        return [t for n, i, t in self.marks if name in (n, i)][nth]
+
+    def end(self):
+        self._torch.cuda.synchronize()
+        self.marks.append(("end", None, time.perf_counter()))
+
+
+def deep_fit_rounds(marks) -> tuple[int, int]:
+    """The rounds of a build's coarse and PQ fits: its round events before
+    and after the subvector division."""
+    names = [i or n for n, i, _ in marks]
+    split = names.index("StartingSubvectorDivision")
+    return (names[:split].count("FinishedCentroidUpdate"),
+            names[split:].count("FinishedCentroidUpdate"))
+
+
+def global_rows(pidx: np.ndarray, p: int):
+    """``(order, starts)``: the corpus row of local index ``v`` in
+    partition ``q`` is ``order[starts[q] + v]`` (the database's local
+    indices inverted)."""
+    order = np.argsort(pidx, kind="stable")
+    starts = np.zeros(p + 1, np.int64)
+    np.cumsum(np.bincount(pidx, minlength=p), out=starts[1:])
+    return order, starts
+
+
+def result_rows(results, order, starts, k: int) -> np.ndarray:
+    rows = np.full((len(results), k), -1, np.int64)
+    for b, rs in enumerate(results):
+        rows[b, :len(rs)] = [order[starts[r.partition_index]
+                                   + r.vector_index] for r in rs]
+    return rows
+
+
+def deep_encode_check(torch, x, built) -> None:
+    """``ops.encode.encode`` of DEEP_CHECK corpus rows against the build's
+    centroids and codebooks: partitions equal to the build's up to
+    near-ties (K-B's 3xTF32 product against full f32), and codes, where
+    the partitions agree, equal up to near-ties of the residual."""
+    from flechasdb_tpu_torch.ops.encode import encode
+    rows = torch.linspace(0, len(x) - 1, DEEP_CHECK, device="cuda").long()
+    cents, books = built.partition_centroids, built.codebooks
+    xs = x[rows]
+    pidx, codes = encode(xs, cents, books)
+    mine_p = widen(torch, built.partition_indices)[rows].long()
+    mine_c = built.codes[rows].long()
+    x64, c64 = xs.double(), cents.double()
+
+    def pdist(p):
+        return ((x64 - c64[p]) ** 2).sum(-1)
+
+    scale = (x64 ** 2).sum(-1) + (c64 ** 2).sum(-1).max()
+    pdiff = mine_p != pidx.long()
+    require(not bool((pdiff & ((pdist(mine_p) - pdist(pidx.long())).abs()
+                               > TIE_REL * scale)).any()),
+            "the build's partitions differ from encode's outside near-ties")
+    same = ~pdiff
+    r = (x64 - c64[mine_p]).reshape(len(xs), DEEP_D, -1)[same]
+    b64 = books.double()
+    dd = torch.arange(DEEP_D, device="cuda")[None, :]
+
+    def cdist(code):
+        return ((r - b64[dd, code]) ** 2).sum(-1)
+
+    got, want = mine_c[same], codes.long()[same]
+    cscale = (r ** 2).sum(-1) + (b64 ** 2).sum(-1).max()
+    cdiff = got != want
+    require(not bool((cdiff & ((cdist(got) - cdist(want)).abs()
+                               > TIE_REL * cscale)).any()),
+            "the build's codes differ from encode's outside near-ties")
+    log(f"Deep10M encode check: {DEEP_CHECK} rows through ops.encode.encode;"
+        f" {int(pdiff.sum())} partitions and {int(cdiff.sum())} codes "
+        "differ, each at a near-tie")
+
+
+def deep_staged(torch, x, seed: int):
+    """Two same-seed ``build_staged`` calls (bit-equal; the second's parts
+    timed at its events), with the launch counts zeroed before them."""
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.parallel import build as pbuild
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = pbuild.build_staged(x, DEEP_P, DEEP_D, C, seed)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    timer = PartTimer(torch)
+    second = pbuild.build_staged(x, DEEP_P, DEEP_D, C, seed, timer)
+    timer.end()
+    launches = dict(_kernels.LAUNCHES)
+    for name, u, v in zip(pbuild.ShardedBuild._fields, first, second):
+        require(torch.equal(widen(torch, u), widen(torch, v)),
+                f"two same-seed staged builds differ in {name}")
+    require(launches["lloyd_round"] > 0, "the staged builds launched no "
+            "lloyd_round")
+    require(launches["lloyd_grouped"] == 0 and
+            launches["lloyd_round_fast"] == 0,
+            f"the staged builds took another kernel: {launches}")
+    one_sum_pass_a_round(launches, "the staged builds")
+    coarse_r, pq_r = deep_fit_rounds(timer.marks)
+    t = timer.at
+    parts = {
+        "coarse seeding": t("FinishedCentroidInitialization")
+        - t("StartingCentroidInitialization"),
+        "coarse rounds": t("FinishedCentroidUpdate", coarse_r - 1)
+        - t("FinishedCentroidInitialization"),
+        f"final assignment ({DEEP_N} rows, K-B and the pass)":
+        t("StartingSubvectorDivision")
+        - t("FinishedCentroidUpdate", coarse_r - 1),
+        "sample residuals": t("FinishedSubvectorDivision")
+        - t("StartingSubvectorDivision"),
+        "PQ fit": t("FinishedCentroidUpdate", -1)
+        - t("FinishedSubvectorDivision"),
+        "_encode_chunked": t("end") - t("FinishedCentroidUpdate", -1),
+    }
+    pops = int(torch.unique(widen(torch, second.partition_indices)).numel())
+    log(f"Deep10M build_staged({DEEP_N} x {DEEP_M}, P={DEEP_P}, D={DEEP_D}, "
+        f"C={C}): first {first_s:.3f} s, second (timed at its events) "
+        f"{t('end') - t('start'):.3f} s, the arrays bit-equal; rounds: coarse "
+        f"{coarse_r}, PQ {pq_r}; partitions populated {pops}; parts: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
+    log(f"Deep10M staged builds' launches: {launches}")
+    # The final assignment's round alone, after the counts were read:
+    # K-B over all rows against the trained centroids, then the pass.
+    from flechasdb_tpu_torch.ops import lloyd
+    xr, cr = x[None], second.partition_centroids[None]
+    idx = lloyd.lloyd_round(xr, cr)[0]
+    round_ms = cuda_ms(torch, lambda: lloyd.lloyd_round(xr, cr), 1)
+    pass_ms = cuda_ms(torch, sum_pass(lloyd, xr, idx, DEEP_P, DEEP_M, 1,
+                                      False), 1)
+    bms, by = lloyd_bound(x.numel() * 4, 1, DEEP_N, DEEP_P, DEEP_M,
+                          TF32_FLOPS, "operations (TF32 tensor cores)")
+    tiling = lloyd.sum_tiling(1, DEEP_N, DEEP_P, DEEP_M, 1)
+    log(f"Deep10M final assignment's round (K-B B=1 N={DEEP_N} K={DEEP_P} "
+        f"M={DEEP_M}): {round_ms:.3f} ms, the pass alone {pass_ms:.3f} ms "
+        f"({tiling.route} route, S={tiling.cols}, R={tiling.rows}; CUDA "
+        f"events), bound {bms:.3f} ms ({by})")
+    final = {"shape": f"K-B lloyd_round, the final assignment B=1 "
+             f"N={DEEP_N} K={DEEP_P} M={DEEP_M}", "ms": round_ms,
+             "bound_ms": bms, "bound_by": by, "pass_ms": pass_ms,
+             "pass_route": tiling.route}
+    return second, launches, final
+
+
+def deep_serve(torch, q_dev, built, gt: np.ndarray):
+    """The staged build's buckets, ``query_bucketed`` at each of
+    DEEP_NPROBES in query chunks as ``benchmarks/deep10m.py`` sizes them,
+    recall@10, and 64 queries at DEEP_NPROBE against the CPU plain path.
+    Returns ``(recall at DEEP_NPROBE, the launch counts read after the
+    timed queries and before the checks, K-A case)``."""
+    import types
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.ops.bucketed import (Buckets, bucketize,
+                                                  query_bucketed)
+    cents, books = built.partition_centroids, built.codebooks
+    t0 = time.perf_counter()
+    pidx = built.partition_indices.cpu().numpy().astype(np.int32)
+    bk = bucketize(built.codes.cpu().numpy(), pidx, DEEP_P, device="cuda")
+    torch.cuda.synchronize()
+    bucket_s = time.perf_counter() - t0
+    counts = np.bincount(pidx, minlength=DEEP_P)
+    words, l_pad = bk.codes.shape[1], bk.codes.shape[2]
+    log(f"Deep10M buckets: bucketize {bucket_s:.3f} s; avg_len "
+        f"{counts.mean():.1f}, max_len {counts.max()}, l_pad {l_pad}, packed "
+        f"words {words}, padded bytes {DEEP_P * l_pad * (words + 1) * 4}")
+
+    def run(nprobe):
+        per_q = nprobe * l_pad * (DEEP_D + 2) * 4
+        cb = max(1, min(len(q_dev), int(1.5e9 / per_q)))
+        outs = [query_bucketed(q_dev[i:i + cb], cents, books, bk, k=K_TOP,
+                               nprobe=nprobe)
+                for i in range(0, len(q_dev), cb)]
+        return (torch.cat([o[0] for o in outs]).cpu().numpy(),
+                torch.cat([o[1] for o in outs]).cpu().numpy(), cb)
+
+    recalls = {}
+    for nprobe in DEEP_NPROBES:
+        _, rows, cb = run(nprobe)
+        recalls[nprobe] = recall_at(rows, gt)
+        ms = []
+        for _ in range(3):
+            _, t = timed(lambda: run(nprobe))
+            ms.append(t)
+        log(f"Deep10M query_bucketed({len(q_dev)}, k={K_TOP}, nprobe={nprobe})"
+            f" in chunks of {cb}: recall@10 {recalls[nprobe]:.4f}, batch "
+            f"{statistics.median(ms):.3f} ms (median of 3: "
+            f"{', '.join(f'{v:.3f}' for v in ms)})")
+    served = dict(_kernels.LAUNCHES)
+    for lo, hi in zip(DEEP_NPROBES, DEEP_NPROBES[1:]):
+        require(recalls[hi] >= recalls[lo], f"recall fell from nprobe {lo} "
+                f"({recalls[lo]}) to {hi} ({recalls[hi]})")
+
+    t0 = time.perf_counter()
+    qc = q_dev[:N_CHECK]
+    got = query_bucketed(qc, cents, books, bk, k=K_TOP, nprobe=DEEP_NPROBE)
+    want = query_bucketed(qc.cpu(), cents.cpu(), books.cpu(),
+                          Buckets(*(a.cpu() for a in bk)), k=K_TOP,
+                          nprobe=DEEP_NPROBE)
+    swapped = same_arrays((got[0].cpu().numpy(), got[1].cpu().numpy()),
+                          (want[0].numpy(), want[1].numpy()),
+                          "Deep10M staged buckets vs CPU")
+    log(f"Deep10M staged: {N_CHECK} queries at nprobe={DEEP_NPROBE} equal to "
+        f"the CPU plain path ({swapped} tie swaps; "
+        f"{time.perf_counter() - t0:.3f} s)")
+    index = types.SimpleNamespace(buckets=bk, centroids=cents,
+                                  codebooks=books, rotation=None)
+    case = scan_at_main_path(torch, index, q_dev[:N_CHECK].cpu().numpy(),
+                             DEEP_NPROBE, "the Deep10M staged build's")
+    return recalls[DEEP_NPROBE], served, case
+
+
+def deep_streamed(torch, ft, x, q, gt: np.ndarray, seed: int,
+                  staged_recall: float) -> None:
+    """``StreamingDatabaseBuilder`` over the corpus copied to the host
+    (DEEP_N rows) behind a read counter: the reads, the parts'
+    times, ``Database.query_batch`` at DEEP_NPROBE on the policy's layout
+    (recall against the staged build's, 64 queries against the CPU
+    path), and the ``InvalidArgs`` of a database without residues."""
+    from flechasdb_tpu_torch.parallel import COARSE_TRAIN_CAP, PQ_TRAIN_CAP
+    from flechasdb_tpu_torch.streaming import CHUNK_BYTES
+    t0 = time.perf_counter()
+    xh = x[:DEEP_N].cpu().numpy()
+    log(f"Deep10M streamed: corpus to the host {time.perf_counter() - t0:.3f}"
+        f" s ({xh.nbytes} bytes)")
+    src = ReadCounter(xh)
+    timer = PartTimer(torch)
+    db = (ft.StreamingDatabaseBuilder(src, device="cuda")
+          .with_partitions(DEEP_P).with_divisions(DEEP_D).with_clusters(C)
+          .with_seed(seed).build(timer))
+    timer.end()
+    t = timer.at
+    parts = {
+        "_make_uuids": t("FinishedIdAssignment") - t("StartingIdAssignment"),
+        "sample gather": t("StartingPartitioning") - t("FinishedIdAssignment"),
+        "coarse fit": t("FinishedPartitioning") - t("StartingPartitioning"),
+        "PQ sample assignment": t("FinishedSubvectorDivision")
+        - t("StartingSubvectorDivision"),
+        "PQ fit": t("FinishedQuantization", -1)
+        - t("StartingQuantization"),
+        "encode stream": t("end") - t("FinishedQuantization", -1),
+    }
+    chunk_rows = CHUNK_BYTES // (4 * DEEP_M)
+    first, rest = src.reads[0], src.reads[1:]
+    cap = max(COARSE_TRAIN_CAP, PQ_TRAIN_CAP)
+    require(first[0] == "rows" and first[1] <= cap and first[2],
+            f"the training gather read {first}, not at most {cap} sorted "
+            "unique rows")
+    require([r[1:] for r in rest] == [
+        (lo, min(lo + chunk_rows, DEEP_N))
+        for lo in range(0, DEEP_N, chunk_rows)]
+        and all(r[0] == "slice" for r in rest),
+        "the encode stream read other than its chunks in order")
+    log(f"Deep10M StreamingDatabaseBuilder({DEEP_N} x {DEEP_M}, "
+        f"P={DEEP_P}, D={DEEP_D}, C={C}): {t('end') - t('start'):.3f} s; "
+        f"reads: one gather of {first[1]} sorted unique rows, then "
+        f"{len(rest)} chunks of at most {chunk_rows} rows in order; parts: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
+
+    kw = dict(k=K_TOP, nprobe=DEEP_NPROBE)
+    res, first_ms = timed(lambda: db.query_batch(q, **kw))
+    res, warm_ms = timed(lambda: db.query_batch(q, **kw))
+    order, starts = global_rows(db.partition_indices, DEEP_P)
+    recall = recall_at(result_rows(res, order, starts, K_TOP), gt)
+    log(f"Deep10M streamed: Database.query_batch({len(q)}, nprobe="
+        f"{DEEP_NPROBE}) on the {db._device_state().layout} layout: first "
+        f"{first_ms:.3f} ms (builds the device index), warm {warm_ms:.3f} "
+        f"ms; recall@10 {recall:.4f} (staged {staged_recall:.4f})")
+    require(abs(recall - staged_recall) <= 0.03, f"the streamed build's "
+            f"recall {recall} is not within 0.03 of the staged build's "
+            f"{staged_recall}")
+    t0 = time.perf_counter()
+    ref = ft.Database(**ft.to_arrays(db), device="cpu")
+    want = ref.query_batch(q[:N_CHECK], **kw)
+    swapped = sum(same_results(res[b], want[b], f"Deep10M streamed [{b}]")
+                  for b in range(N_CHECK))
+    log(f"Deep10M streamed: {N_CHECK} queries equal to the CPU path on the "
+        f"{ref._device_state().layout} layout ({swapped} tie swaps; "
+        f"{time.perf_counter() - t0:.3f} s)")
+    for what, call in (("query_batch(rerank=100)", lambda: db.query_batch(
+            q[:2], rerank=RERANK, **kw)), ("reconstruct(0)",
+                                           lambda: db.reconstruct(0))):
+        try:
+            call()
+        except ft.InvalidArgs:
+            continue
+        raise AssertionError(f"the streamed database's {what} did not raise "
+                             "InvalidArgs")
+
+
+def deep_run(torch, seed: int):
+    """Phase 9: the JAX package's Deep10M scale-up on the card
+    (``benchmarks/deep10m.py``): data, the staged build, its serving, the
+    streamed build. Returns ``(launches, K-A case, the final assignment's
+    round timed)``."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import _kernels, synth
+    from flechasdb_tpu_torch.ops.exact import exact_topk
+    gen = torch.Generator("cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    x, q = synth.gmm_pair_device(gen, DEEP_N, DEEP_NQ, DEEP_M,
+                                 n_clusters=1024, intrinsic=12)
+    torch.cuda.synchronize()
+    log(f"Deep10M data {DEEP_N} x {DEEP_M} + {DEEP_NQ} queries "
+        f"(synth.gmm_pair_device, 1024 components, intrinsic 12, seed "
+        f"{seed}): {time.perf_counter() - t0:.3f} s; peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB over "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.3f} GiB held")
+    t0 = time.perf_counter()
+    gt = exact_topk(q, x, k=K_TOP)[1].cpu().numpy()
+    log(f"Deep10M ground truth (exact_topk, {DEEP_NQ} queries): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    built, launches, final = deep_staged(torch, x, seed)
+    log(f"Deep10M staged builds' peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+    deep_encode_check(torch, x, built)
+    _kernels.reset_launches()
+    staged_recall, served, case = deep_serve(torch, q, built, gt)
+    require(served["adc_scan"] > 0, "the Deep10M queries launched no "
+            "adc_scan")
+    del built
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    deep_streamed(torch, ft, x, q.cpu().numpy(), gt, seed, staged_recall)
+    streamed = dict(_kernels.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"Deep10M streamed build and queries: launches {streamed}; peak "
+        f"device memory {peak:.3f} GiB")
+    require(streamed["lloyd_round"] > 0, "the streamed build launched no "
+            "lloyd_round")
+    one_sum_pass_a_round(streamed, "the streamed build")
+    total = {k: launches[k] + served[k] + streamed[k] for k in launches}
+    del x, q
+    torch.cuda.empty_cache()
+    return total, case, final
+
+
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
         by, ms_by="cuda events", **extra):
     return {"name": name, "route": route, "source": source,
@@ -2490,12 +2941,21 @@ def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
 
 
 def assign_fields(case) -> dict:
-    """A Lloyd row's assignment alone (phase 9's device time of one launch
+    """A Lloyd row's assignment alone (phase 10's device time of one launch
     of the assignment kernel) beside its bound."""
     return {"assign_ms": case["ms"], "assign_bound_ms": case["bound"][0],
             "assign_bound_by": case["bound"][1],
             "assign_ms_by": "torch.profiler, device time a launch, back to "
             "back"}
+
+
+def deep_shape(case) -> dict:
+    """A Lloyd row's time at a Deep10M shape of phase 1 (a round, CUDA
+    events), its bound, and the pass's device time there (phase 10)."""
+    _, ms, plain_ms, bms, by, sums, _ = case
+    return {"shape": sums["name"] + " " + sums["shape"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "pass_ms": sums["ms"], "pass_route": sums["route"]}
 
 
 def sums_row(launches, err, case):
@@ -2594,6 +3054,28 @@ def main() -> None:
                 parity_lloyd(torch, gen, 8, N, 1024, 16, dup=True,
                              grouped=True, time_it=False, fast=True)]
     sort_err = parity_sort_route(torch, gen)
+    # The Deep10M path's shapes (phase 9): the capped coarse fit, the PQ
+    # fit at m=12 (K-B: 12 does not divide 128), K=4096 with copies of
+    # centroid 3 in other tiles; full and fast, the dense route's sums
+    # bit-equal to its order model at the first two.
+    from flechasdb_tpu_torch.ops import lloyd
+    for shape in ((1, DEEP_COARSE_N, DEEP_P, DEEP_M),
+                  (DEEP_D, DEEP_PQ_N, C, DEEP_M // DEEP_D),
+                  (1, 65_536, DEEP_P, DEEP_M), (1, DEEP_N, DEEP_P, DEEP_M)):
+        log(f"Deep10M shape B={shape[0]} N={shape[1]} K={shape[2]} "
+            f"M={shape[3]}: {lloyd.sum_tiling(*shape, 1)}; "
+            f"{lloyd.fast_tiling(*shape)}")
+    deep_cases = [parity_lloyd(torch, gen, 1, DEEP_COARSE_N, DEEP_P, DEEP_M,
+                               fast=fast, ordered=True)
+                  for fast in (False, True)]
+    deep_cases += [parity_lloyd(torch, gen, DEEP_D, DEEP_PQ_N, C,
+                                DEEP_M // DEEP_D, fast=fast, ordered=True)
+                   for fast in (False, True)]
+    deep_cases += [parity_lloyd(torch, gen, 1, 65_536, DEEP_P, DEEP_M,
+                                dup=True, time_it=False, fast=fast)
+                   for fast in (False, True)]
+    b_cases += deep_cases[0::2]
+    bf_cases += deep_cases[1::2]
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
@@ -2624,8 +3106,13 @@ def main() -> None:
     f64_launches, a_f64 = f64_run(torch, sift, args.seed)
     log(f"phase 8 (the f64 build): {time.perf_counter() - t0:.3f} s")
     del head, sift
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64]
+    deep_launches, a_deep, deep_final = deep_run(torch, args.seed)
+    log(f"phase 9 (the Deep10M shape): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64, a_deep]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
     lloyd_cases = b_cases + c_cases + bf_cases + cf_cases
@@ -2644,14 +3131,14 @@ def main() -> None:
             f"{case['ms']:.4f} ms device a launch ({case['calls']} "
             f"profiled), bound {case['bound'][0]:.4f} ms "
             f"({case['bound'][1]})")
-    log(f"phase 9 (K-A, cluster-sum pass and assignment times): "
+    log(f"phase 10 (K-A, cluster-sum pass and assignment times): "
         f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
                 + stored_launches[k] + fo_launches[k] + cli_launches[k]
-                + f64_launches[k] for k in slice_launches}
+                + f64_launches[k] + deep_launches[k] for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),
@@ -2660,13 +3147,15 @@ def main() -> None:
                  lookup, "adc_lookup"),
         row("lloyd_round", "cuda", SRC_B, REPLACES["round"],
             launches["lloyd_round"], max(e[0] for e in b_cases),
-            *b_cases[1][1:5]),
+            *b_cases[1][1:5], deep10m=[deep_shape(e) for e in
+                                       deep_cases[0:4:2]] + [deep_final]),
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
             *c_cases[0][1:5], **assign_fields(c_cases[0][6])),
         row("lloyd_round_fast", "cuda", SRC_BF, REPLACES["round_fast"],
             launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
-            *bf_cases[1][1:5], **assign_fields(bf_cases[1][6])),
+            *bf_cases[1][1:5], **assign_fields(bf_cases[1][6]),
+            deep10m=[deep_shape(e) for e in deep_cases[1:4:2]]),
         row("lloyd_grouped_fast", "cuda", SRC_CF, REPLACES["grouped_fast"],
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
             *cf_cases[0][1:5], **assign_fields(cf_cases[0][6])),

@@ -10,7 +10,10 @@ after ``StoredDatabase.preload``, serves from the device; :mod:`.asyncdb`
 loads, queries and saves the same trees from asyncio; the fsspec object
 store, whose ``fsspec`` is imported at first use, never with the package),
 of the flat (exact-search) tier (:mod:`.flat`, the exact scan on the
-device) and of the CLI (``python -m flechasdb_tpu_torch``), with
+device), of the single-device Deep10M-scale build (:mod:`.parallel`,
+``build_staged`` with training caps) and the streaming build
+(:class:`StreamingDatabaseBuilder`, corpora larger than the device),
+and of the CLI (``python -m flechasdb_tpu_torch``), with
 hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
 
 * K-A, the ADC bucket scan of every query (``csrc/adc_scan.cu``), also
@@ -62,6 +65,7 @@ from .memfs import MemoryFileSystem
 from .objectstore import AsyncFsspecFileSystem, FsspecFileSystem
 from .serialize import save_database
 from .stored import StoredDatabase, StoredQueryResult, load_database
+from .streaming import StreamingDatabaseBuilder
 
 __all__ = [
     "AsyncFsspecFileSystem",
@@ -90,6 +94,7 @@ __all__ = [
     "StoredDatabase",
     "StoredFlatDatabase",
     "StoredQueryResult",
+    "StreamingDatabaseBuilder",
     "VALID_METRICS",
     "VerificationFailure",
     "from_jax_arrays",

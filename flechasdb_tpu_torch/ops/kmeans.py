@@ -19,6 +19,9 @@ The same semantics, carried over:
   ``"round_fast"``, ``"grouped_fast"`` or bare ``"_fast"`` (the kernel
   :func:`_auto_impl` picks) run every round and the final reassignment
   with ``fast_math`` numerics, one bf16 pass (:mod:`.lloyd`).
+* ``train_cap`` trains on a uniform sample of at most that many rows and
+  assigns the full data once afterwards (the JAX package's cap, which
+  ``parallel.build`` sets at Deep10M scale).
 
 PyTorch runs eagerly, so one host loop serves the JAX package's ``fit``
 and ``fit_with_events``: the events of its ``fit_with_events`` fire when
@@ -165,10 +168,27 @@ def _resolve_impl(impl: str | None, x: torch.Tensor) -> str:
     return base + "_fast" if fast else base
 
 
+def _split(generator: torch.Generator) -> torch.Generator:
+    """A generator on the same device, seeded by one draw of
+    ``generator`` (the JAX package's ``random.split``)."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device))
+    return torch.Generator(generator.device).manual_seed(seed)
+
+
+def _round_fn(x: torch.Tensor, impl: str, fast: bool):
+    """The Lloyd round of a resolved kernel over ``x``: ``c → (indices,
+    sums, counts)``; for ``"grouped"`` the data is regrouped here, once."""
+    if impl == "grouped":
+        xg = regroup_divisions(x)
+        return lambda c: lloyd_round_grouped(xg, c, fast)
+    return lambda c: lloyd_round(x, c, fast)
+
+
 def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
         epsilon: float = DEFAULT_EPSILON, max_rounds: int = MAX_ROUNDS,
         handler: EventHandler = _noop, impl: str | None = None,
-        ) -> KMeansResult:
+        train_cap: int | None = None) -> KMeansResult:
     """k-means++ seeding then Lloyd rounds over ``x [B, N, M]`` f32.
 
     ``N == k`` is one vector a cluster (``kmeans.rs:158-169``).
@@ -177,8 +197,19 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     ``None`` applies :func:`_auto_impl`; a ``_fast`` suffix selects the
     ``fast_math`` numerics); for ``"grouped"`` the data is regrouped once,
     outside the Lloyd loop, and the final reassignment goes through the
-    same kernel."""
-    impl, fast = _impl_parts(_resolve_impl(impl, x))
+    same kernel.
+
+    ``train_cap`` (``None`` or not positive: no cap): when
+    ``N > train_cap``, the fit trains on ``train_cap`` rows drawn
+    uniformly with replacement by a generator split off ``generator``,
+    then assigns the full ``x`` once against the trained centroids,
+    through the rounds' kernel (the JAX package's ``_assign_only`` keeps
+    the indices of a full round).
+    ``rounds`` and ``gradient`` are the sub-fit's. As in the JAX package,
+    an engaged cap returns the assignment made after the final update;
+    the stop-before-reassignment rule holds for the sub-fit's own."""
+    resolved = _resolve_impl(impl, x)
+    impl, fast = _impl_parts(resolved)
     b, n, m = x.shape
     dev = x.device
     if n < k:
@@ -188,6 +219,16 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
         return KMeansResult(x.clone(), idx.contiguous(),
                             torch.zeros(b, dtype=torch.int32, device=dev),
                             torch.zeros(b, dtype=torch.float32, device=dev))
+    if train_cap is not None and train_cap > 0 and n > train_cap:
+        if train_cap < k:
+            raise ValueError(
+                f"train_cap is smaller than k: {train_cap} < {k}")
+        rows = torch.randint(0, n, (train_cap,), generator=_split(generator),
+                             device=dev)
+        sub = fit(x[:, rows].contiguous(), k, generator, epsilon=epsilon,
+                  max_rounds=max_rounds, handler=handler, impl=resolved)
+        idx = _round_fn(x, impl, fast)(sub.centroids)[0]
+        return KMeansResult(sub.centroids, idx, sub.rounds, sub.gradient)
     handler(ev.StartingCentroidInitialization())
     centroids, indices = _subsampled_init(x, k, generator,
                                           need_indices=max_rounds == 0)
@@ -197,15 +238,7 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     if max_rounds == 0:
         return KMeansResult(centroids, indices, rounds, gradient)
 
-    if impl == "grouped":
-        xg = regroup_divisions(x)
-
-        def round_fn(c):
-            return lloyd_round_grouped(xg, c, fast)
-    else:
-        def round_fn(c):
-            return lloyd_round(x, c, fast)
-
+    round_fn = _round_fn(x, impl, fast)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for r in range(max_rounds):
         idx_f, sums, counts = round_fn(centroids)

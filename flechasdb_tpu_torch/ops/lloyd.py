@@ -54,8 +54,9 @@ the centroids staged once in bf16, as :func:`stage_centroids`, then
 :func:`lloyd_round_grouped` launches K-C fast
 (``csrc/lloyd_grouped_fast.cu``: the centroids staged once a round as
 :func:`stage_grouped_centroids`, each grouped row read once by the TMA for
-all its divisions and held as bf16 ``wgmma`` A fragments, each division's
-k16 steps against K-B fast's ring of centroid tiles, on the tiling
+all its divisions and held as bf16 register fragments, each division's
+k16 steps a warp's own ``mma.sync`` against K-B fast's ring of centroid
+tiles, on the tiling
 :func:`grouped_fast_tiling` picks; at m ≥ 16 its picks are K-B fast's on
 the ungrouped data), counted under ``lloyd_grouped_fast``; both then run
 the cluster-sum pass's fast variant. On a CPU tensor the plain version

@@ -1,0 +1,172 @@
+"""The single-device build of Deep10M-class corpora (the JAX package's
+``parallel/build.py``, its one-device half).
+
+Both k-means phases train on capped samples: the coarse fit on at most
+:data:`COARSE_TRAIN_CAP` rows, through ``ops.kmeans.fit(train_cap=)``,
+which then assigns the full corpus once; the PQ fit on the residuals of
+at most :data:`PQ_TRAIN_CAP` rows, after which every row's code comes
+from :func:`_encode_chunked`, a chunked pass with residuals made a chunk
+at a time. The corpus stays the only full-size array on the device.
+
+PyTorch runs eagerly, so the JAX package's two forms, one jitted program
+(``_build_fn``) and the host-stepped :func:`build_staged`, are one body
+here; :func:`build_staged` also emits the build events. Randomness comes
+from three ``torch.Generator`` on the data's device seeded from ``seed``
+(the coarse fit, the PQ fit, the PQ sample), in the place of the JAX
+package's three-way key split: builds agree with the JAX package's in
+quality, not in bits, and two builds with the same seed on the same card
+are equal.
+
+Not carried over: ``build_step_donating`` (XLA buffer donation, which
+eager PyTorch has no use for) and ``build_staged``'s ``rounds_per_step``
+and ``rounds_per_step_max`` (the number of Lloyd rounds fused into one
+XLA program; the port's Lloyd loop steps on the host). The sharded build
+is ROADMAP item 20.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import events as ev
+from ..events import EventHandler, _noop
+from ..ops import kmeans
+from ..ops.distance import full_f32
+
+#: Most rows that train the PQ codebooks (``parallel/build.py:34-41``):
+#: codebook quality saturates at a few thousand rows a code, while the
+#: ``[D, N, M/D]`` division copy grows with N. Above the cap the
+#: codebooks train on a uniform sample and every code comes from
+#: :func:`_encode_chunked`.
+PQ_TRAIN_CAP = 1 << 20
+
+#: Most rows that train the coarse centroids (``parallel/build.py:43-51``):
+#: 512 rows a centroid at P=4096. Above the cap the Lloyd rounds run on a
+#: uniform sample and the full corpus gets one final assignment.
+COARSE_TRAIN_CAP = 2 << 20
+
+
+class ShardedBuild(NamedTuple):
+    """The build's device tensors: ``partition_centroids [P, M]`` f32,
+    ``partition_indices [N]`` (``uint16`` when P <= 65536, else
+    ``int32``), ``codebooks [D, C, M/D]`` f32, ``codes [N, D]`` (``uint8``
+    when C <= 256, else ``int32``), the JAX package's dtypes."""
+    partition_centroids: torch.Tensor
+    partition_indices: torch.Tensor
+    codebooks: torch.Tensor
+    codes: torch.Tensor
+
+
+def _code_dtype(c: int) -> torch.dtype:
+    """Narrowest dtype that holds PQ code values ``0..c-1``."""
+    return torch.uint8 if c <= 256 else torch.int32
+
+
+def _pidx_dtype(p: int) -> torch.dtype:
+    """Narrowest dtype that holds partition indices ``0..p-1``."""
+    return torch.uint16 if p <= (1 << 16) else torch.int32
+
+
+@full_f32()
+def _encode_chunked(x: torch.Tensor, cents: torch.Tensor, idx: torch.Tensor,
+                    codebooks: torch.Tensor, *,
+                    chunk: int = 1 << 16) -> torch.Tensor:
+    """PQ codes of the corpus residuals against ``codebooks [D, C, M/D]``:
+    ``codes[n, d] = argmin_c ‖c_dc‖² − 2 (x[n] − cents[idx[n]])_d·c_dc``
+    (the first minimum), over chunks of ``chunk`` rows whose residuals are
+    made a chunk at a time; the last chunk shifts back over rows already
+    done, which come out the same. The products run in full f32."""
+    n, m = x.shape
+    d, c, sub = codebooks.shape
+    chunk = min(chunk, n)
+    cc = (codebooks * codebooks).sum(dim=-1)                   # [D, C]
+    codes = torch.zeros((n, d), dtype=_code_dtype(c), device=x.device)
+    for i in range(-(-n // chunk)):
+        start = min(i * chunk, n - chunk)
+        rows = slice(start, start + chunk)
+        r = (x[rows] - cents[idx[rows].long()]).reshape(chunk, d, sub)
+        rc = torch.einsum("nds,dcs->ndc", r, codebooks)
+        codes[rows] = torch.argmin(cc[None] - 2.0 * rc, dim=-1) \
+            .to(codes.dtype)
+    return codes
+
+
+def _pq_impl(impl: Optional[str], sub: int) -> Optional[str]:
+    """The PQ fit's ``impl`` from the build's: a forced ``"round"`` (K-B)
+    re-resolves to the auto kernel at subvector widths below 128, as the
+    JAX package's forced ``"pallas"`` does; other names pass through, and
+    a ``_fast`` suffix survives (``ops.kmeans._impl_parts``)."""
+    base, fast = kmeans._impl_parts(impl)
+    base = None if (base == "round" and sub < 128) else base
+    return (base or "") + "_fast" if fast else base
+
+
+def _sample_residuals(x: torch.Tensor, cents: torch.Tensor,
+                      idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    return x[rows] - cents[idx[rows].long()]
+
+
+def _all_residuals(x: torch.Tensor, cents: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    return x - cents[idx.long()]
+
+
+def build_staged(x, p: int, d: int, c: int, seed: int,
+                 events: Optional[EventHandler] = None, *,
+                 pq_cap: int = PQ_TRAIN_CAP,
+                 coarse_cap: int = COARSE_TRAIN_CAP,
+                 impl: Optional[str] = None,
+                 device: str | torch.device = "cuda") -> ShardedBuild:
+    """Builds the IVF-PQ arrays of ``x [N, M]`` (a tensor or an array; as
+    f32 on ``device``): the coarse fit under ``coarse_cap``, the PQ fit on
+    at most ``pq_cap`` residuals, then the codes. ``events`` receives the
+    clustering events of both fits and the subvector-division pair
+    between them, as the JAX package's ``build_staged`` emits them.
+    ``impl`` as in ``ops.kmeans.fit``, re-resolved for the PQ fit by
+    :func:`_pq_impl`."""
+    handler = events if events is not None else _noop
+    x = torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+    n, m = x.shape
+    dev = x.device
+    g_coarse, g_pq, g_sub = (torch.Generator(dev).manual_seed(seed + i * 2**32)
+                             for i in range(3))
+
+    coarse = kmeans.fit(x[None], p, g_coarse, handler=handler, impl=impl,
+                        train_cap=coarse_cap)
+    cents, idx = coarse.centroids[0], coarse.indices[0]
+
+    handler(ev.StartingSubvectorDivision())
+    if n > pq_cap:
+        # A uniform sample drawn with replacement: duplicates reweight the
+        # objective negligibly at this cap.
+        rows = torch.randint(0, n, (pq_cap,), generator=g_sub, device=dev)
+        sample = _sample_residuals(x, cents, idx, rows)
+    else:
+        sample = _all_residuals(x, cents, idx)
+    divided = sample.reshape(-1, d, m // d).transpose(0, 1).contiguous()
+    del sample
+    handler(ev.FinishedSubvectorDivision())
+
+    pq = kmeans.fit(divided, c, g_pq, handler=handler,
+                    impl=_pq_impl(impl, m // d))
+    del divided
+    if n > pq_cap:
+        codes = _encode_chunked(x, cents, idx, pq.centroids)
+    else:
+        # The fit saw every residual: its assignment is the codes, as
+        # the JAX package keeps it (a second pass could flip ties).
+        codes = pq.indices.T.to(_code_dtype(c))
+    return ShardedBuild(cents, idx.to(_pidx_dtype(p)), pq.centroids, codes)
+
+
+def _build_fn(x, seed: int, *, p: int, d: int, c: int,
+              pq_cap: int = PQ_TRAIN_CAP,
+              coarse_cap: int = COARSE_TRAIN_CAP,
+              impl: Optional[str] = None,
+              device: str | torch.device = "cuda") -> ShardedBuild:
+    """The one-call build (the JAX package's ``_build_fn``): the arrays of
+    :func:`build_staged` for the same arguments, without events."""
+    return build_staged(x, p, d, c, seed, pq_cap=pq_cap,
+                        coarse_cap=coarse_cap, impl=impl, device=device)

@@ -66,3 +66,26 @@ def midpoint_radius(keys, frac: float) -> float:
     while s[i + 1] - s[i] <= 1e-3 * abs(s[i]) + 1e-4:
         i += 1
     return float((s[i] + s[i + 1]) / 2)
+
+
+_ROUND_EVENTS = ("StartingCentroidUpdate", "FinishedCentroidUpdate",
+                 "StartingCentroidReassignment",
+                 "FinishedCentroidReassignment")
+
+
+def event_pattern(events) -> list:
+    """Event class names, a cluster event as ``cluster:`` and its inner
+    event's name, each Lloyd round's four events collapsed into one
+    ``round`` and runs of rounds into one: the order of a build's phases,
+    whatever the number of rounds each of its fits took."""
+    out = []
+    for e in events:
+        inner = getattr(e, "event", None)
+        name = type(e if inner is None else inner).__name__
+        if name in _ROUND_EVENTS:
+            name = "round"
+        if inner is not None:
+            name = "cluster:" + name
+        if not out or out[-1] != name or not name.endswith("round"):
+            out.append(name)
+    return out
