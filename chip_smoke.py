@@ -270,15 +270,40 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    call before left in L2 (``warm_ms``). The host time per back-to-back
    call (host clock, ended by a synchronize) is printed beside them; the
    plain version's is a CUDA-event mean, as in phase 1.
+11. The sharded paths (``flechasdb_tpu_torch.parallel``), run after
+   phase 8 while phases 3, 5 and 7 hold their state. (a) A world of one
+   over NCCL in this process (the group's first collective timed apart):
+   ``build_sharded`` at the headline and SIFT shapes bit-equal to
+   ``parallel.build._build_fn`` with the same seed, the sharded/unsharded
+   time printed; ``ShardedIndex`` on both layouts against phase 3's
+   bucketed results for the 1000 SIFT queries, and 64 ``query_range``s
+   against ``DeviceIndex.query_range``; ``preload(mesh=)`` of phase 5's
+   stored headline (bucketed) and SIFT (masked) databases and of both
+   flat tiers at the SIFT corpus against phases 5 and 7; the
+   ``with_mesh`` streamed build at the SIFT shape against the unsharded
+   one (0 rows may differ). (b) A gloo world of two worker processes of
+   this script (``--rank``, ``--world``, ``--work``), both on
+   ``cuda:0``: two same-seed SIFT builds bit-equal, both ranks' arrays
+   equal, recall@10 within 0.01 of phase 3's, the share of partition
+   indices equal to (a)'s printed, ``ShardedIndex(layout="bucketed")``
+   of phase 3's arrays equal to (a)'s, the ``with_mesh`` streamed build
+   with each chunk split across the ranks (both ranks' codes equal, 0
+   rows differing from an unsharded streamed build); no jax imported. A
+   worker's failure or timeout fails the run. Every sharded call of the
+   phase runs after its unsharded reference and is counted alone: each
+   build must launch K-B and the pass (and K-C at the SIFT shape), each
+   bucketed query batch K-A.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phases 4, 5, 6, 7, 8 and 9) and read just after; every kernel a
+queries, phases 4, 5, 6, 7, 8, 9, and each sharded call of 11) and read
+just after; every kernel a
 path runs must have run, and every Lloyd round must have been followed
 by one cluster-sum pass. The line before the last is the kernels' JSON
 record: a row per TPU kernel of the JAX package, and one for the
 cluster-sum pass (the sum halves of the two Lloyd kernels; its
 ``library_ms`` is ``index_add_`` of the same sums), with its
-counterpart's launches over the paths (phases 2 to 9), its time
+counterpart's launches over the paths (phases 2 to 9 and 11, the two
+ranks of phase 11 included), its time
 (``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``; K-B fast's, K-C's and K-C fast's
 ``assign_ms`` and ``assign_bound_ms``, the assignment alone at K-B's PQ
@@ -503,7 +528,9 @@ def setup(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip())
+    global CARD
+    CARD = smi.stdout.strip()
+    log(CARD)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     from flechasdb_tpu_torch import _kernels
@@ -1781,6 +1808,7 @@ def stored_sift(ft, sift: dict, work: Path) -> None:
         swapped += same_results(got[b], want[b], f"SIFT stored [{b}]")
         exact += sum(g.squared_distance == w.squared_distance
                      for g, w in zip(got[b], want[b]))
+    sift["stored_db"], sift["stored_batch"] = sdb, got
     log(f"stored SIFT: save_database {save_ms:.3f} ms, {size} bytes; "
         f"load_database {load_ms:.3f} ms; {N_SINGLE} cold queries at "
         f"nprobe={SIFT_NPROBE}: {', '.join(f'{v:.3f}' for v in cold_ms)} ms,"
@@ -1826,6 +1854,7 @@ def stored_run(torch, head: dict, sift: dict, work: Path):
     _kernels.reset_launches()
     torch.cuda.synchronize()
     sdb = stored_headline(ft, head, work)
+    head["stored_db"] = sdb              # phase 11 preloads it on a mesh
     stored_launches = _kernels.LAUNCHES["adc_scan"]
     stored_sift(ft, sift, work)
     stored_golden(ft)
@@ -2425,12 +2454,14 @@ def flat_tier(torch, ft, head: dict, sift: dict, seed: int,
 
     fs = ft.LocalFileSystem(work / "flat-sift")
     root, save_ms = timed(lambda: ft.save_flat_database(db, fs))
+    sift["flat_batch"] = res
     size = sum(f.stat().st_size for f in (work / "flat-sift").rglob("*"))
     sdb, load_ms = timed(lambda: ft.load_flat_database(fs, f"{root}.binpb",
                                                        device="cuda"))
     _, pre_ms = timed(lambda: (sdb.preload(), torch.cuda.synchronize()))
     require(sdb._dev[0].device.type == "cuda", "the stored corpus is not "
             "on the card")
+    sift["flat_stored"] = sdb
     got = sdb.query_batch(q, K_TOP)
     require([[(r.vector_id, r.squared_distance) for r in rs] for rs in got]
             == [[(r.vector_id, r.squared_distance) for r in rs]
@@ -2932,6 +2963,397 @@ def deep_run(torch, seed: int):
     return total, case, final
 
 
+# --- phase 11: the sharded paths ---------------------------------------------
+
+#: The kernels each sharded build must launch (K-C at the SIFT shape's
+#: subvector width of 16; the headline's 128 runs K-B).
+HEAD_BUILD = ("lloyd_round", "cluster_sums")
+SIFT_BUILD = ("lloyd_round", "lloyd_grouped", "cluster_sums")
+#: The card's name and power limit, as setup() read them from nvidia-smi.
+CARD = "not read"
+
+
+def counted(torch, fn):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after it, the card synchronized at both edges: ``(out, host ms,
+    launches)``."""
+    from flechasdb_tpu_torch import _kernels
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, dict(_kernels.LAUNCHES)
+
+
+def needs(launches: dict, names, what: str) -> None:
+    for name in names:
+        require(launches[name] > 0, f"{what} launched no {name}")
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+
+
+def sharded_builds(torch, mesh, head: dict, sift: dict, seed: int,
+                   total: dict):
+    """``build_sharded`` on a world of one against ``_build_fn`` with the
+    same seed, at the headline and SIFT shapes: every array bit-equal.
+    ``_build_fn`` runs first; each sharded build's own launches go to
+    ``total``. Returns the SIFT build."""
+    from flechasdb_tpu_torch.parallel import build_sharded
+    from flechasdb_tpu_torch.parallel.build import _build_fn
+    out = None
+    for name, x, p, d, kernels in (
+            ("headline", head["x"], P, D, HEAD_BUILD),
+            ("SIFT", sift["x"], SIFT_P, SIFT_D, SIFT_BUILD)):
+        want, u_ms, _ = counted(torch, lambda: _build_fn(
+            x, seed, p=p, d=d, c=C, device="cuda"))
+        got, s_ms, launches = counted(torch, lambda: build_sharded(
+            x, p, d, C, seed, mesh=mesh))
+        needs(launches, kernels, f"build_sharded ({name})")
+        add_launches(total, launches)
+        for field, g, w in zip(got._fields, got, want):
+            require(g.dtype == w.dtype and torch.equal(g, w),
+                    f"{name}: build_sharded's {field} differs from "
+                    "_build_fn's")
+        log(f"build_sharded, world of one, {name} ({len(x)} x "
+            f"{x.shape[1]}, P={p}, D={d}, C={C}): {s_ms / 1e3:.3f} s, "
+            f"launches {launches}; _build_fn {u_ms / 1e3:.3f} s; "
+            f"sharded/unsharded {s_ms / u_ms:.4f}; all four arrays bit-equal")
+        out = got
+    return out
+
+
+def sharded_serving(torch, mesh, sift: dict, total: dict):
+    """``ShardedIndex`` on both layouts against phase 3's bucketed
+    ``DeviceIndex`` (1000 queries), and 64 range queries after their
+    ``DeviceIndex`` reference. Returns the bucketed results."""
+    from flechasdb_tpu_torch.serving import ShardedIndex
+    q, adc = sift["q"], sift["adc"]
+    kw = dict(k=K_TOP, nprobe=SIFT_NPROBE)
+    out = {}
+    for layout in ("bucketed", "masked"):
+        index, up_ms, up = counted(torch, lambda: ShardedIndex(
+            *sift["arrays"], layout=layout, metric=sift["db"].metric,
+            mesh=mesh))
+        _, first_ms, first = counted(torch, lambda: index.query(q, **kw))
+        got, ms, warm = counted(torch, lambda: index.query(q, **kw))
+        if layout == "bucketed":
+            needs(first, ("adc_scan",), "ShardedIndex(bucketed).query")
+            needs(warm, ("adc_scan",), "ShardedIndex(bucketed).query")
+        for launches in (up, first, warm):
+            add_launches(total, launches)
+        require(np.array_equal(got[2], adc[2]),
+                f"ShardedIndex({layout}) probed other partitions")
+        swapped = same_arrays(got[:2], adc[:2], f"ShardedIndex({layout})")
+        exact = int(np.sum(got[0] == adc[0]))
+        log(f"ShardedIndex(layout={layout!r}) -> {index.layout}: build "
+            f"{up_ms:.3f} ms; query({len(q)}, k={K_TOP}, nprobe="
+            f"{SIFT_NPROBE}) first {first_ms:.3f} ms, warm {ms:.3f} ms, "
+            f"adc_scan launches {first['adc_scan']} + {warm['adc_scan']}; "
+            f"equal to phase 3's DeviceIndex(layout='bucketed') ({exact} of "
+            f"{got[0].size} distances bit-equal, {swapped} tie swaps)")
+        out[layout] = (index, got)
+    index = out["bucketed"][0]
+    radius = float(np.median(adc[0][:, K_TOP - 1]))
+    qs = q[:N_CHECK]
+    want = sift["index"].query_range(qs, radius, SIFT_NPROBE)
+    got, ms, launches = counted(
+        torch, lambda: index.query_range(qs, radius, SIFT_NPROBE))
+    needs(launches, ("adc_scan",), "ShardedIndex(bucketed).query_range")
+    add_launches(total, launches)
+    edge = sum(same_hits(got[b], want[b], radius, f"sharded range [{b}]")
+               for b in range(N_CHECK))
+    log(f"ShardedIndex(bucketed).query_range({N_CHECK}, radius "
+        f"{radius:.3f}, nprobe={SIFT_NPROBE}) {ms:.3f} ms, "
+        f"{sum(len(r) for r, _ in got)} hits, adc_scan launches "
+        f"{launches['adc_scan']}; equal to DeviceIndex.query_range ({edge} "
+        "rows at the radius)")
+    return out["bucketed"][1]
+
+
+def sharded_tiers(torch, ft, mesh, head: dict, sift: dict,
+                  total: dict) -> None:
+    """``preload(mesh=)`` of phase 5's stored databases (the headline one,
+    bucketed by the policy, and the SIFT one, masked) and of both flat
+    tiers at the SIFT corpus (phase 7's stored one), each against its
+    phase's results. The stored databases are those phases' objects,
+    their partitions and chunks already read."""
+    for name, sdb, q, nprobe, want in (
+            ("headline", head["stored_db"], head["q"], NPROBE,
+             head["batch"]),
+            ("SIFT", sift["stored_db"], sift["q"], SIFT_NPROBE,
+             sift["stored_batch"])):
+        _, pre_ms, pre = counted(torch, lambda: sdb.preload(mesh=mesh))
+        got, qb_ms, served = counted(
+            torch, lambda: sdb.query_batch(q, K_TOP, nprobe))
+        layout = sdb._dev[0].layout
+        if name == "headline":
+            require(layout == "sharded-bucketed", f"the stored headline's "
+                    f"preload(mesh=) built a {layout} index")
+            needs(served, ("adc_scan",), "the stored headline's sharded "
+                  "query_batch")
+        add_launches(total, pre)
+        add_launches(total, served)
+        swapped = sum(same_results(got[b], want[b],
+                                   f"sharded stored {name} [{b}]")
+                      for b in range(len(q)))
+        log(f"stored {name} preload(mesh=) {pre_ms:.3f} ms ({layout}); "
+            f"query_batch({len(q)}, nprobe={nprobe}) {qb_ms:.3f} ms, "
+            f"adc_scan launches {served['adc_scan']}; equal to phase 5's "
+            f"preloaded results ({swapped} tie swaps)")
+    q, want = sift["q"], sift["flat_batch"]
+    mem = ft.FlatDatabase(sift["x"], vector_ids=sift["db"].vector_ids,
+                          device="cuda")
+    stored = sift["flat_stored"]
+    for name, db in (("FlatDatabase", mem), ("StoredFlatDatabase", stored)):
+        _, pre_ms, pre = counted(torch, lambda: db.preload(mesh=mesh))
+        got, ms, served = counted(torch, lambda: db.query_batch(q, K_TOP))
+        add_launches(total, pre)
+        add_launches(total, served)
+        swapped = sum(same_results(got[b], want[b], f"sharded {name} [{b}]")
+                      for b in range(len(q)))
+        log(f"{name}.preload(mesh=) {pre_ms:.3f} ms; query_batch({len(q)},"
+            f" k={K_TOP}) {ms:.3f} ms; equal to phase 7's ({swapped} tie "
+            "swaps)")
+    del mem
+
+
+def streamed_builder(ft, x, seed: int, mesh=None):
+    """The streamed build of the SIFT shape (its default chunks of 524,288
+    rows), sharded over ``mesh`` when one is given."""
+    b = (ft.StreamingDatabaseBuilder(x, device="cuda")
+         .with_partitions(SIFT_P).with_divisions(SIFT_D)
+         .with_clusters(C).with_seed(seed))
+    return b if mesh is None else b.with_mesh(mesh)
+
+
+def rows_differ(a, b) -> int:
+    """Rows whose codes or partition differ between two databases."""
+    return int(np.sum((a.codes != b.codes).any(axis=1)
+                      | (a.partition_indices != b.partition_indices)))
+
+
+def sharded_streamed(torch, ft, mesh, sift: dict, seed: int,
+                     total: dict) -> None:
+    """``with_mesh`` at the SIFT shape after the unsharded streamed build
+    of the same seed: codes and partition indices bit-identical."""
+    x = sift["x"]
+    base, b_ms, _ = counted(torch, lambda: streamed_builder(
+        ft, x, seed).build())
+    shard, s_ms, launches = counted(torch, lambda: streamed_builder(
+        ft, x, seed, mesh).build())
+    needs(launches, SIFT_BUILD, "the with_mesh streamed build")
+    add_launches(total, launches)
+    differ = rows_differ(base, shard)
+    log(f"streamed build at the SIFT shape: unsharded {b_ms / 1e3:.3f} s, "
+        f"with_mesh {s_ms / 1e3:.3f} s, launches {launches}; rows whose "
+        f"codes or partition differ: {differ}")
+    require(differ == 0, f"with_mesh: {differ} rows differ from the "
+            "unsharded streamed build")
+    require(base.vector_ids == shard.vector_ids, "with_mesh: other ids")
+
+
+def world_of_two(torch, sift: dict, seed: int, work: Path, built_one,
+                 served_one) -> dict:
+    """A gloo world of two worker processes of this script on ``cuda:0``:
+    each builds the SIFT shape twice, serves 1000 queries and runs the
+    ``with_mesh`` streamed build. Returns the two workers' launches
+    added."""
+    np.save(work / "w2-x.npy", sift["x"])
+    np.save(work / "w2-q.npy", sift["q"])
+    np.savez(work / "w2-index.npz", *sift["arrays"])
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--rank", str(r), "--world", "2", "--work", str(work)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=420)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines():
+            log(f"  [rank {r}] {line}")
+        require(pr.returncode == 0, f"world-of-two rank {r} exited "
+                f"{pr.returncode}")
+    ranks = [dict(np.load(work / f"w2-r{r}.npz")) for r in range(2)]
+    for key in ("cents", "books", "pidx", "codes", "stream_digest"):
+        require(np.array_equal(ranks[0][key], ranks[1][key]),
+                f"world of two: the ranks' {key} differ")
+    pidx_one = built_one.partition_indices.to(torch.int32).cpu().numpy()
+    share = float(np.mean(ranks[0]["pidx"] == pidx_one))
+    gt = sift["gt"]
+    rows = ranks[0]["own_rows"]
+    recall = float(np.mean([len(set(rows[b].tolist()) & set(gt[b].tolist()))
+                            / K_TOP for b in range(len(rows))]))
+    swapped = same_arrays((ranks[0]["d"], ranks[0]["r"]), served_one[:2],
+                          "world of two, ShardedIndex(bucketed)")
+    require(np.array_equal(ranks[0]["p"], served_one[2]),
+            "world of two probed other partitions")
+    log(f"world of two (gloo, both ranks on cuda:0): build_sharded "
+        f"{', '.join(f'{v:.3f}' for v in ranks[0]['secs'])} s (rank 0), "
+        f"the two runs and both ranks bit-equal; partition indices equal "
+        f"to the world of one's: {share:.4f}; recall@10 {recall:.4f} "
+        f"(phase 3's {sift['recall']:.4f}); ShardedIndex(bucketed) of phase"
+        f" 3's arrays: query({len(sift['q'])}) {float(ranks[0]['serve_ms']):.3f}"
+        f" ms, equal to the world of one's ({swapped} tie swaps); with_mesh "
+        f"streamed build {float(ranks[0]['stream_s']):.3f} s (rank 0), both "
+        f"ranks' codes equal, {int(ranks[0]['stream_differ'])} rows differ "
+        f"from rank 0's unsharded streamed build")
+    require(abs(recall - sift["recall"]) <= 0.01,
+            f"world of two: recall {recall} is not within 0.01 of phase 3's "
+            f"{sift['recall']}")
+    total = {}
+    for rk in ranks:
+        add_launches(total, {name: int(count) for name, count in zip(
+            rk["launch_names"].tolist(), rk["launch_counts"].tolist())})
+    return total
+
+
+def mesh_worker(args) -> None:
+    """One rank of :func:`world_of_two` (``--rank``, ``--world``,
+    ``--work``): joins the gloo world on ``cuda:0``, builds the SIFT shape
+    twice (the runs must be bit-equal), serves its own build and phase 3's
+    arrays through ``ShardedIndex(layout="bucketed")``, runs the
+    ``with_mesh`` streamed build (each chunk split across the ranks; rank 0
+    then holds it against an unsharded streamed build, 0 rows may differ),
+    and writes its arrays, results, times and the sharded calls' own
+    launch counts to ``--work``."""
+    import datetime
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    work = Path(args.work)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work / 'gloo-store'}",
+        rank=args.rank, world_size=args.world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        import flechasdb_tpu_torch as ft
+        from flechasdb_tpu_torch.parallel import build_sharded, corpus_mesh
+        from flechasdb_tpu_torch.serving import ShardedIndex
+        mesh = corpus_mesh(device="cuda:0")
+        x = np.load(work / "w2-x.npy", mmap_mode="c")   # each rank reads
+                                                         # its own block
+        q = np.load(work / "w2-q.npy")
+        with np.load(work / "w2-index.npz") as f:
+            arrays = [f[f"arr_{i}"] for i in range(4)]
+        # Phase 3's configuration, read from its arrays.
+        (p, _), (d, c, _) = arrays[0].shape, arrays[1].shape
+        total, builds, secs = {}, [], []
+        for _ in range(2):
+            b, ms, launches = counted(torch, lambda: build_sharded(
+                x, p, d, c, args.seed, mesh=mesh))
+            needs(launches, SIFT_BUILD, f"rank {args.rank}'s build_sharded")
+            add_launches(total, launches)
+            builds.append(b)
+            secs.append(ms / 1e3)
+        for field, a, b in zip(builds[0]._fields, *builds):
+            require(torch.equal(a, b), f"the two builds' {field} differ")
+        cents, pidx, books, codes = (t.cpu().numpy() for t in builds[0])
+        pidx = pidx.astype(np.int32)
+        own, _, launches = counted(torch, lambda: ShardedIndex(
+            cents, books, codes.astype(np.int32), pidx, layout="bucketed",
+            mesh=mesh).query(q, K_TOP, SIFT_NPROBE))
+        needs(launches, ("adc_scan",), f"rank {args.rank}'s ShardedIndex")
+        add_launches(total, launches)
+        theirs = ShardedIndex(*arrays, layout="bucketed", mesh=mesh)
+        theirs.query(q, K_TOP, SIFT_NPROBE)
+        res, serve_ms, launches = counted(
+            torch, lambda: theirs.query(q, K_TOP, SIFT_NPROBE))
+        needs(launches, ("adc_scan",), f"rank {args.rank}'s ShardedIndex")
+        add_launches(total, launches)
+        stream, stream_ms, launches = counted(torch, lambda: streamed_builder(
+            ft, x, args.seed, mesh).build())
+        if args.rank == 0:               # training runs on rank 0 alone
+            needs(launches, SIFT_BUILD, "rank 0's with_mesh streamed build")
+        add_launches(total, launches)
+        log(f"launches of the sharded calls {total}; builds {secs} s; "
+            f"serve {serve_ms:.3f} ms; with_mesh streamed build "
+            f"{stream_ms / 1e3:.3f} s")
+        digest = hashlib.sha256(
+            np.ascontiguousarray(stream.codes).tobytes()
+            + np.ascontiguousarray(stream.partition_indices).tobytes())
+        differ = -1
+        if args.rank == 0:
+            base = streamed_builder(ft, x, args.seed).build()
+            differ = rows_differ(base, stream)
+            log(f"with_mesh against the unsharded streamed build: {differ} "
+                "rows differ")
+            require(differ == 0, f"with_mesh over two ranks: {differ} rows "
+                    "differ from the unsharded streamed build")
+            require(base.vector_ids == stream.vector_ids,
+                    "with_mesh over two ranks: other ids")
+        require(not any(m == "jax" or m.startswith("jax.")
+                        or m.split(".")[0] == "flechasdb_tpu"
+                        for m in sys.modules), "jax was imported")
+        np.savez(work / f"w2-r{args.rank}.npz", cents=cents, books=books,
+                 pidx=pidx, codes=codes, own_rows=own[1], d=res[0], r=res[1],
+                 p=res[2], secs=np.asarray(secs),
+                 serve_ms=np.asarray(serve_ms),
+                 stream_s=np.asarray(stream_ms / 1e3),
+                 stream_digest=np.frombuffer(digest.digest(), np.uint8),
+                 stream_differ=np.asarray(differ),
+                 launch_names=np.asarray(list(total)),
+                 launch_counts=np.asarray(list(total.values())))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_run(torch, seed: int, head: dict, sift: dict, work: Path):
+    """Phase 11: (a) a world of one over NCCL in this process, (b) a gloo
+    world of two worker processes sharing the card. Each sharded call's
+    launches are counted on their own, after its unsharded reference ran;
+    the sum of those counts, the workers' added, is returned."""
+    import datetime
+
+    import flechasdb_tpu_torch as ft
+    import torch.distributed as dist
+    from flechasdb_tpu_torch.parallel import corpus_mesh
+    from flechasdb_tpu_torch.parallel.mesh import sum_ranks
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{work / 'nccl-store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    one = {}
+    try:
+        mesh = corpus_mesh(device="cuda:0")
+        # The group's first collective sets up its communicator; timed
+        # apart from the builds.
+        _, first_ms, _ = counted(torch, lambda: sum_ranks(
+            mesh, torch.zeros(1, device=mesh.device)))
+        log(f"world of one ({mesh.backend}): group set-up "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms, first collective "
+            f"{first_ms:.3f} ms")
+        built = sharded_builds(torch, mesh, head, sift, seed, one)
+        served = sharded_serving(torch, mesh, sift, one)
+        sharded_tiers(torch, ft, mesh, head, sift, one)
+        sharded_streamed(torch, ft, mesh, sift, seed, one)
+    finally:
+        dist.destroy_process_group()
+    log(f"launches of phase 11 (a)'s sharded calls: {one}")
+    t1 = time.perf_counter()
+    two = world_of_two(torch, sift, seed, work, built, served)
+    log(f"launches of phase 11 (b)'s sharded calls, both ranks: {two}")
+    log(f"phase 11 parts: (a) {t1 - t0:.3f} s, (b) "
+        f"{time.perf_counter() - t1:.3f} s ({CARD})")
+    total = dict(one)
+    add_launches(total, two)
+    return total
+
+
+
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
         by, ms_by="cuda events", **extra):
     return {"name": name, "route": route, "source": source,
@@ -2982,7 +3404,13 @@ def scan_row(replaces, launches, err, case, name="adc_scan"):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:              # one rank of phase 11's world
+        mesh_worker(args)
+        return
 
     import torch
     t_all = time.perf_counter()
@@ -3102,9 +3530,14 @@ def main() -> None:
                                         work)
         log(f"phase 7 (the async tier, the flat tier, the CLI): "
             f"{time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    f64_launches, a_f64 = f64_run(torch, sift, args.seed)
-    log(f"phase 8 (the f64 build): {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        f64_launches, a_f64 = f64_run(torch, sift, args.seed)
+        log(f"phase 8 (the f64 build): {time.perf_counter() - t0:.3f} s")
+        # Phase 11 runs here, while phases 3, 5 and 7 hold their state.
+        t0 = time.perf_counter()
+        mesh_launches = sharded_run(torch, args.seed, head, sift, work)
+        log(f"phase 11 (the sharded paths): "
+            f"{time.perf_counter() - t0:.3f} s")
     del head, sift
     gc.collect()
     torch.cuda.empty_cache()
@@ -3138,7 +3571,8 @@ def main() -> None:
 
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
                 + stored_launches[k] + fo_launches[k] + cli_launches[k]
-                + f64_launches[k] + deep_launches[k] for k in slice_launches}
+                + f64_launches[k] + deep_launches[k] + mesh_launches[k]
+                for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
         scan_row(REPLACES["indexed"], launches["adc_scan"], a_err, a_main),

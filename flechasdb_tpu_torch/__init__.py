@@ -10,9 +10,11 @@ after ``StoredDatabase.preload``, serves from the device; :mod:`.asyncdb`
 loads, queries and saves the same trees from asyncio; the fsspec object
 store, whose ``fsspec`` is imported at first use, never with the package),
 of the flat (exact-search) tier (:mod:`.flat`, the exact scan on the
-device), of the single-device Deep10M-scale build (:mod:`.parallel`,
-``build_staged`` with training caps) and the streaming build
-(:class:`StreamingDatabaseBuilder`, corpora larger than the device),
+device), of the Deep10M-scale builds (:mod:`.parallel`, ``build_staged``
+with training caps) and the streaming build
+(:class:`StreamingDatabaseBuilder`, corpora larger than the device), of
+the multi-GPU scale-out on ``torch.distributed`` (:mod:`.parallel`: the
+sharded build, sharded serving, ``preload(mesh=)`` and ``with_mesh``),
 and of the CLI (``python -m flechasdb_tpu_torch``), with
 hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``):
 

@@ -15,9 +15,10 @@ A port of the JAX package's ``flat.py`` (for the reason given in
 ids for the same seed, the same results within the JAX tolerance, the same
 tree byte for byte, the same messages. What differs: the corpus lives on an
 explicit device (``device=``, ``"cuda"`` by default; a CUDA device that is
-missing raises, nothing falls back to the CPU), and ``preload(mesh=)``, the
-JAX package's sharded serving, raises ``NotImplementedError`` naming its
-ROADMAP item.
+missing raises, nothing falls back to the CPU), and ``preload(mesh=)``
+takes a :class:`.parallel.mesh.CorpusMesh`: the corpus rows split across
+the ranks and every query is a collective call
+(:mod:`.parallel.exact`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ._roadmap import not_ported
 from .attributes import AttributeTable, AttributeValue, check_attribute_value
 from .build import _make_uuids
 from .errors import InvalidArgs, InvalidData
@@ -74,30 +74,48 @@ def _kernel_metric(metric: str) -> str:
     return "dot" if metric == "dot" else "l2"
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise not_ported("A sharded flat preload (mesh=)", 20)
+def _place(x: np.ndarray, device: str, mesh) -> torch.Tensor:
+    """The corpus on ``device``, or this rank's block of it on a mesh."""
+    if mesh is None:
+        return torch.as_tensor(x, device=device)
+    from .parallel.exact import shard_flat
+    return shard_flat(mesh, x)[0]
 
 
 def _exact_query(vs: np.ndarray, dev: torch.Tensor,
-                 mask: Optional[np.ndarray], *, k: int, metric: str
-                 ) -> tuple[np.ndarray, np.ndarray]:
+                 mask: Optional[np.ndarray], *, k: int, metric: str,
+                 mesh=None, n: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """The exact top-k on ``dev``'s device, shared by every flat tier:
-    host ``(dists [B, k], rows [B, k])``."""
+    host ``(dists [B, k], rows [B, k])``. On a ``mesh`` ``dev`` is this
+    rank's block of the ``n`` rows, and the call is collective."""
     q = torch.as_tensor(vs, device=dev.device)
-    row_mask = None if mask is None else torch.as_tensor(mask,
-                                                         device=dev.device)
-    dists, rows = exact_topk(q, dev, row_mask, k=k,
-                             metric=_kernel_metric(metric))
+    if mesh is not None:
+        from .parallel.exact import exact_sharded
+        from .parallel.mesh import shard_mask
+        row_mask = None if mask is None else shard_mask(mesh, mask)
+        dists, rows = exact_sharded(q, dev, row_mask, mesh=mesh, k=k, n=n,
+                                    metric=_kernel_metric(metric))
+    else:
+        row_mask = None if mask is None else torch.as_tensor(
+            mask, device=dev.device)
+        dists, rows = exact_topk(q, dev, row_mask, k=k,
+                                 metric=_kernel_metric(metric))
     return dists.cpu().numpy(), rows.cpu().numpy()
 
 
-def _exact_range_keys(v: np.ndarray, dev: torch.Tensor,
-                      metric: str) -> np.ndarray:
+def _exact_range_keys(v: np.ndarray, dev: torch.Tensor, metric: str,
+                      mesh=None, n: int = 0) -> np.ndarray:
     """Exact ranking keys of one query ``[1, M]`` against the corpus on
-    the device, moved to the host for the threshold: ``[N]``."""
+    the device (on a ``mesh``, over every rank's block of the ``n``
+    rows), moved to the host for the threshold: ``[N]``."""
     q = torch.as_tensor(v, device=dev.device)
-    return exact_keys(q, dev, _kernel_metric(metric))[0].cpu().numpy()
+    if mesh is not None:
+        from .parallel.exact import exact_keys_sharded
+        keys = exact_keys_sharded(q, dev, mesh=mesh, n=n,
+                                  metric=_kernel_metric(metric))
+    else:
+        keys = exact_keys(q, dev, _kernel_metric(metric))
+    return keys[0].cpu().numpy()
 
 
 def _range_order(keys: np.ndarray, radius: float,
@@ -164,17 +182,21 @@ class FlatDatabase:
         self.vector_ids = list(vector_ids)
         self.attribute_table: AttributeTable = {}
         self._dev: Optional[torch.Tensor] = None
+        self._mesh = None
         self._rng = rng
         self._filter_cache: Optional[ColumnCache] = None
 
     def preload(self, mesh=None) -> None:
-        """Pushes the corpus to this database's device. Queries preload
-        lazily on first use. A no-op when already resident. A ``mesh``
-        (the JAX package's row-sharded serving) is not ported yet and
-        raises ``NotImplementedError``."""
-        _check_mesh(mesh)
-        if self._dev is None:
-            self._dev = torch.as_tensor(self._x, device=self.device)
+        """Pushes the corpus to this database's device, or, with a
+        :class:`.parallel.mesh.CorpusMesh`, this rank's block of its rows
+        to the mesh's device: queries then run the sharded exact scan
+        (:func:`.parallel.exact.exact_sharded`), each a collective call.
+        Queries preload lazily on first use, under the last mesh given.
+        A no-op when already resident under the same mesh."""
+        if self._dev is not None and mesh is self._mesh:
+            return
+        self._mesh = mesh
+        self._dev = _place(self._x, self.device, mesh)
 
     # -- accessors -----------------------------------------------------------
 
@@ -276,10 +298,11 @@ class FlatDatabase:
         vs = as_vector_set(vs, self.vector_size)
         if self.metric == "cosine":
             vs = normalize_rows(vs, "query")
-        self.preload()
+        self.preload(self._mesh)
         mask = None if where is None else self._filter_mask(where)
         dists, rows = _exact_query(vs, self._dev, mask, k=k,
-                                   metric=self.metric)
+                                   metric=self.metric, mesh=self._mesh,
+                                   n=self.num_vectors)
         return [_to_results(dists[b], rows[b], self.vector_ids,
                             self._get_attr_default_none)
                 for b in range(len(vs))]
@@ -292,9 +315,10 @@ class FlatDatabase:
         result count."""
         _check_radius(radius)
         v = _prep_query(v, self.vector_size, self.metric)
-        self.preload()
+        self.preload(self._mesh)
         mask = None if where is None else self._filter_mask(where)
-        keys = _exact_range_keys(v, self._dev, self.metric)
+        keys = _exact_range_keys(v, self._dev, self.metric, self._mesh,
+                                 self.num_vectors)
         if mask is not None:
             keys = np.where(mask, keys, np.inf)
         return [
@@ -445,6 +469,7 @@ class StoredFlatDatabase:
     _attribute_table: AttributeTable = field(default_factory=dict, repr=False)
     _dev: Optional[tuple] = field(default=None, repr=False)
     _filter_cache: Optional[ColumnCache] = field(default=None, repr=False)
+    _mesh: Optional[object] = field(default=None, repr=False)
 
     def __post_init__(self) -> None:
         self.device = str(torch.device(self.device))
@@ -487,16 +512,20 @@ class StoredFlatDatabase:
     def _load_all(self):
         if self._dev is None:
             x, ids = self._load_all_host()
-            self._dev = (torch.as_tensor(x, device=self.device), ids)
+            self._dev = (_place(x, self.device, self._mesh), ids)
         return self._dev
 
     def preload(self, mesh=None) -> None:
         """Loads every chunk and pushes the corpus to this database's
-        device (the flat analogue of
-        :meth:`.stored.StoredDatabase.preload`). A no-op when already
-        resident. A ``mesh`` is not ported yet and raises
-        ``NotImplementedError``."""
-        _check_mesh(mesh)
+        device, or this rank's block of it to a
+        :class:`.parallel.mesh.CorpusMesh`'s (the flat analogue of
+        :meth:`.stored.StoredDatabase.preload`; queries are then
+        collective calls). A no-op when already resident under the same
+        mesh."""
+        if self._dev is not None and mesh is self._mesh:
+            return
+        self._mesh = mesh
+        self._dev = None
         self._load_all()
 
     def _mask(self, where, ids) -> Optional[np.ndarray]:
@@ -521,7 +550,8 @@ class StoredFlatDatabase:
             vs = normalize_rows(vs, "query")
         xd, ids = self._load_all()
         mask = self._mask(where, ids)
-        dists, rows = _exact_query(vs, xd, mask, k=k, metric=self.metric)
+        dists, rows = _exact_query(vs, xd, mask, k=k, metric=self.metric,
+                                   mesh=self._mesh, n=self.num_vectors)
         return [_to_results(dists[b], rows[b], ids, self.get_attribute)
                 for b in range(len(vs))]
 
@@ -533,7 +563,8 @@ class StoredFlatDatabase:
         v = _prep_query(v, self.vector_size, self.metric)
         xd, ids = self._load_all()
         mask = self._mask(where, ids)
-        keys = _exact_range_keys(v, xd, self.metric)
+        keys = _exact_range_keys(v, xd, self.metric, self._mesh,
+                                 self.num_vectors)
         if mask is not None:
             keys = np.where(mask, keys, np.inf)
         return [

@@ -57,7 +57,12 @@ def sqdist_one(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return sqdist(x, v[..., None, :])[..., 0]
 
 
-def assign_chunked(x: torch.Tensor, c: torch.Tensor, *, chunk: int = 16384,
+#: Rows a product of :func:`assign_chunked` covers.
+ASSIGN_CHUNK = 16384
+
+
+def assign_chunked(x: torch.Tensor, c: torch.Tensor, *,
+                   chunk: int = ASSIGN_CHUNK,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest centroid by the clamped :func:`sqdist`, over row chunks:
     ``x [B, N, M]``, ``c [B, K, M]`` → ``(indices [B, N] int32, min_sqdist

@@ -233,12 +233,30 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     centroids, indices = _subsampled_init(x, k, generator,
                                           need_indices=max_rounds == 0)
     handler(ev.FinishedCentroidInitialization())
-    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
-    gradient = torch.full((b,), float("inf"), device=dev)
     if max_rounds == 0:
-        return KMeansResult(centroids, indices, rounds, gradient)
+        return KMeansResult(centroids, indices,
+                            torch.zeros(b, dtype=torch.int32, device=dev),
+                            torch.full((b,), float("inf"), device=dev))
 
     round_fn = _round_fn(x, impl, fast)
+    return lloyd_loop(centroids, indices, round_fn,
+                      lambda c: round_fn(c)[0], epsilon=epsilon,
+                      max_rounds=max_rounds, handler=handler)
+
+
+def lloyd_loop(centroids: torch.Tensor, indices: torch.Tensor, round_fn,
+               assign_fn, *, epsilon: float, max_rounds: int,
+               handler: EventHandler = _noop) -> KMeansResult:
+    """The Lloyd rounds from seeded ``centroids [B, K, M]`` (the JAX
+    package's ``kmeans.lloyd_loop``, the one home of the convergence and
+    freeze rules): ``round_fn(c) → (indices, sums, counts)``, whole sums
+    over every row; ``assign_fn(c) → indices`` reassigns the entries that
+    exhaust ``max_rounds`` (>= 1). The sharded fit passes rounds whose
+    sums cross the mesh."""
+    b = centroids.shape[0]
+    dev = centroids.device
+    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
+    gradient = torch.full((b,), float("inf"), device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for r in range(max_rounds):
         idx_f, sums, counts = round_fn(centroids)
@@ -263,6 +281,6 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
     else:
         # max_rounds exhausted: the carried assignment of unconverged
         # entries predates their final centroid update.
-        fresh = round_fn(centroids)[0]
+        fresh = assign_fn(centroids)
         indices = torch.where(done[:, None], indices, fresh)
     return KMeansResult(centroids, indices, rounds, gradient)

@@ -1,5 +1,5 @@
-"""The single-device build of Deep10M-class corpora (the JAX package's
-``parallel/build.py``, its one-device half).
+"""The builds of Deep10M-class corpora, on one device and over a mesh
+(the JAX package's ``parallel/build.py``).
 
 Both k-means phases train on capped samples: the coarse fit on at most
 :data:`COARSE_TRAIN_CAP` rows, through ``ops.kmeans.fit(train_cap=)``,
@@ -20,8 +20,12 @@ are equal.
 Not carried over: ``build_step_donating`` (XLA buffer donation, which
 eager PyTorch has no use for) and ``build_staged``'s ``rounds_per_step``
 and ``rounds_per_step_max`` (the number of Lloyd rounds fused into one
-XLA program; the port's Lloyd loop steps on the host). The sharded build
-is ROADMAP item 20.
+XLA program; the port's Lloyd loop steps on the host).
+
+:func:`build_sharded` is the same build over a :class:`.mesh.CorpusMesh`,
+one rank a process: each rank holds its block of the rows, both fits run
+sharded (:func:`.kmeans.fit_sharded`), and the partition indices and codes
+are gathered to every rank once, at the end.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from .. import events as ev
 from ..events import EventHandler, _noop
 from ..ops import kmeans
 from ..ops.distance import full_f32
+from .kmeans import fit_sharded
+from .mesh import CorpusMesh, block_sizes, gather_blocks, gather_rows
 
 #: Most rows that train the PQ codebooks (``parallel/build.py:34-41``):
 #: codebook quality saturates at a few thousand rows a code, while the
@@ -170,3 +176,68 @@ def _build_fn(x, seed: int, *, p: int, d: int, c: int,
     :func:`build_staged` for the same arguments, without events."""
     return build_staged(x, p, d, c, seed, pq_cap=pq_cap,
                         coarse_cap=coarse_cap, impl=impl, device=device)
+
+
+def _encode_sharded(x: torch.Tensor, cents: torch.Tensor, idx: torch.Tensor,
+                    codebooks: torch.Tensor, mesh: CorpusMesh,
+                    ) -> torch.Tensor:
+    """This rank's codes: :func:`_encode_chunked` of its block ``x [nloc,
+    M]`` (no collective; an empty block gives no codes)."""
+    if x.shape[0] == 0:
+        return torch.zeros((0, codebooks.shape[0]),
+                           dtype=_code_dtype(codebooks.shape[1]),
+                           device=x.device)
+    return _encode_chunked(x, cents, idx, codebooks)
+
+
+def build_sharded(x, p: int, d: int, c: int, seed: int, *,
+                  mesh: CorpusMesh, pq_cap: int = PQ_TRAIN_CAP,
+                  coarse_cap: int = COARSE_TRAIN_CAP,
+                  impl: Optional[str] = None) -> ShardedBuild:
+    """The arrays of :func:`_build_fn` for ``x [N, M]``, built over
+    ``mesh``. A collective call: every rank passes the same full ``x`` (an
+    array or a tensor) and arguments, uploads only its block of the rows
+    to ``mesh.device``, and gets the same :class:`ShardedBuild`.
+
+    The generator stream is :func:`_build_fn`'s (three generators on the
+    mesh's device seeded from ``seed``), drawn alike on every rank. Each
+    rank runs the Lloyd kernels on its own rows; the capped PQ sample's
+    rows and partitions come from their owners bit for bit; the codes
+    are this rank's (:func:`_encode_sharded`, or the PQ fit's own
+    assignment when it saw every residual). The partition indices and
+    codes are then gathered to every rank once: N·(4 + D) bytes with
+    byte codes. A world of one is bit-equal to :func:`_build_fn` on the
+    same device; a wider world's centroids differ from it in the last
+    bits (the sums' tiling follows the block's shape)."""
+    dev = mesh.device
+    n, m = x.shape
+    a, z = mesh.block(n)
+    xl = torch.as_tensor(x[a:z], dtype=torch.float32, device=dev) \
+        .contiguous()
+    g_coarse, g_pq, g_sub = (torch.Generator(dev).manual_seed(seed + i * 2**32)
+                             for i in range(3))
+
+    coarse = fit_sharded(xl[None], p, g_coarse, mesh=mesh, n=n, impl=impl,
+                         train_cap=coarse_cap)
+    cents, idx = coarse.centroids[0], coarse.indices[0]
+    if n > pq_cap:
+        rows = torch.randint(0, n, (pq_cap,), generator=g_sub, device=dev)
+        sample = (gather_rows(mesh, xl[None], rows, n)[0]
+                  - cents[gather_rows(mesh, idx[None], rows, n)[0].long()])
+        s0, s1 = mesh.block(pq_cap)
+        sample, n_pq = sample[s0:s1], pq_cap
+    else:
+        sample, n_pq = _all_residuals(xl, cents, idx), n
+    divided = sample.reshape(-1, d, m // d).transpose(0, 1).contiguous()
+    del sample
+    pq = fit_sharded(divided, c, g_pq, mesh=mesh, n=n_pq,
+                     impl=_pq_impl(impl, m // d))
+    del divided
+    if n > pq_cap:
+        codes = _encode_sharded(xl, cents, idx, pq.centroids, mesh)
+    else:
+        codes = pq.indices.T.to(_code_dtype(c))
+    sizes = block_sizes(mesh, n)
+    return ShardedBuild(cents, gather_blocks(mesh, idx, sizes)
+                        .to(_pidx_dtype(p)), pq.centroids,
+                        gather_blocks(mesh, codes.contiguous(), sizes))

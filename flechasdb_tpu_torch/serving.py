@@ -17,6 +17,8 @@ an optional ``row_mask [N] bool`` (attribute filters). Range search
 (:meth:`DeviceIndex.query_range`) scans as a query does and thresholds
 every candidate on the host. An OPQ ``rotation`` is uploaded once and
 rotates every query's tables (:mod:`.ops.adc`, :mod:`.ops.bucketed`).
+:class:`ShardedIndex` serves both layouts over a mesh of ranks
+(:mod:`.parallel`).
 """
 
 from __future__ import annotations
@@ -239,6 +241,131 @@ class DeviceIndex:
                 qd[i:i + limit], self.centroids, self.codebooks, self.codes,
                 self.pidx, mask, nprobe=nprobe, metric=self.metric,
                 rotation=self.rotation)[0])
+            rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
+                                   keys.shape)
+            out += _range_host_tail(keys, rows, radius)
+        return out
+
+
+class ShardedIndex:
+    """IVF-PQ index sharded over a :class:`.parallel.mesh.CorpusMesh`
+    (the JAX package's ``ShardedIndex``): every method is a collective
+    call, made by every rank with the same arguments, and returns the same
+    host arrays on every rank. Two layouts, as :class:`DeviceIndex`:
+    **bucketed** (the buckets split on the partition axis; each rank scans
+    only the probed buckets it owns with K-A,
+    :mod:`.parallel.bucketed`) or **masked** (the rows split; each rank
+    scans all its rows, :mod:`.parallel.query`); ``layout=None`` applies
+    the JAX package's policy. A query moves ``k`` candidates a rank;
+    range search moves the candidate arrays. ``self.layout`` is
+    ``"sharded-bucketed"`` or ``"sharded-masked"``."""
+
+    def __init__(self, centroids: np.ndarray, codebooks: np.ndarray,
+                 codes: np.ndarray, pidx: np.ndarray,
+                 layout: Optional[str] = None,
+                 rotation: Optional[np.ndarray] = None,
+                 hbm_budget_bytes: int = HBM_BUDGET_BYTES,
+                 metric: str = "l2", *, mesh) -> None:
+        from .parallel.bucketed import shard_buckets
+        from .parallel.mesh import shard_corpus
+
+        self.mesh = mesh
+        self.device = mesh.device
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.metric = "dot" if check_metric(metric) == "dot" else "l2"
+        p = centroids.shape[0]
+        self.num_rows = len(codes)
+        if layout is None:
+            layout = choose_layout(p, pidx, max(len(codes), 1))
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout: {layout!r}")
+        self.layout = f"sharded-{layout}"
+        self.centroids = torch.tensor(
+            np.asarray(centroids, np.float32), device=self.device)
+        self.codebooks = torch.tensor(
+            np.asarray(codebooks, np.float32), device=self.device)
+        self.rotation = None if rotation is None else torch.tensor(
+            np.asarray(rotation, np.float32), device=self.device)
+        self.buckets = self.codes = self.pidx = None
+        if layout == "bucketed":
+            self.buckets = shard_buckets(mesh, bucketize(
+                np.asarray(codes, np.int32), np.asarray(pidx, np.int32), p))
+        else:
+            self.codes, self.pidx = shard_corpus(mesh, codes, pidx)
+
+    def _masked_batch_limit(self) -> int:
+        """:func:`_masked_limit` at the largest block's rows, so that every
+        rank runs the same chunks."""
+        return _masked_limit(tuple(self.centroids.shape),
+                             tuple(self.codebooks.shape),
+                             -(-self.num_rows // self.mesh.size),
+                             self.hbm_budget_bytes, self.metric)
+
+    def _row_mask(self, row_mask) -> Optional[torch.Tensor]:
+        """The ``[N]`` mask on the device: whole for the bucketed layout,
+        this rank's block for the masked one."""
+        if row_mask is None:
+            return None
+        mask = torch.as_tensor(row_mask, dtype=torch.bool)
+        if mask.shape != (self.num_rows,):
+            raise ValueError(f"row_mask shape {tuple(mask.shape)} != "
+                             f"({self.num_rows},)")
+        if self.buckets is None:
+            from .parallel.mesh import shard_mask
+            return shard_mask(self.mesh, mask)
+        return mask.to(self.device)
+
+    def query(self, q: np.ndarray, k: int, nprobe: int, row_mask=None,
+              approx: bool | float = False,
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched k-NN, :meth:`DeviceIndex.query`'s contract: host
+        ``(dists, rows, probed)``; ``approx`` is answered exactly."""
+        from .parallel.bucketed import query_bucketed_sharded
+        from .parallel.query import query_sharded
+
+        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        mask = self._row_mask(row_mask)
+        kw = dict(mesh=self.mesh, k=k, nprobe=nprobe, metric=self.metric,
+                  rotation=self.rotation)
+        if self.buckets is not None:
+            return _host(*query_bucketed_sharded(
+                qd, self.centroids, self.codebooks, self.buckets, mask,
+                **kw))
+        limit = self._masked_batch_limit()
+        parts = [query_sharded(qd[i:i + limit], self.centroids,
+                               self.codebooks, self.codes, self.pidx, mask,
+                               n=self.num_rows, **kw)
+                 for i in range(0, len(qd), limit)]
+        return _host(*(torch.cat(ts) for ts in zip(*parts)))
+
+    def query_range(self, q: np.ndarray, radius: float, nprobe: int,
+                    row_mask=None) -> list:
+        """Range search, :meth:`DeviceIndex.query_range`'s contract (one
+        ``(rows, keys)`` pair a query, ascending), in the same chunks; the
+        candidates are thresholded on the host."""
+        from .parallel.bucketed import range_bucketed_sharded
+        from .parallel.query import range_sharded
+
+        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        mask = self._row_mask(row_mask)
+        kw = dict(mesh=self.mesh, nprobe=nprobe, metric=self.metric,
+                  rotation=self.rotation)
+        out = []
+        if self.buckets is not None:
+            limit = _range_limit(nprobe, self.buckets.codes.shape[2],
+                                 tuple(self.codebooks.shape),
+                                 self.hbm_budget_bytes)
+            for i in range(0, len(qd), limit):
+                keys, rows, _ = range_bucketed_sharded(
+                    qd[i:i + limit], self.centroids, self.codebooks,
+                    self.buckets, mask, **kw)
+                out += _range_host_tail(*_host(keys, rows), radius)
+            return out
+        limit = self._masked_batch_limit()
+        for i in range(0, len(qd), limit):
+            keys, = _host(range_sharded(
+                qd[i:i + limit], self.centroids, self.codebooks, self.codes,
+                self.pidx, mask, n=self.num_rows, **kw)[0])
             rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
                                    keys.shape)
             out += _range_host_tail(keys, rows, radius)

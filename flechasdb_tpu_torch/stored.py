@@ -24,10 +24,9 @@ A port of the JAX package's ``stored.py`` (for the reason given in
 :mod:`.errors`), held against it by ``tests/test_torch_stored.py``: the
 same lazy loads, host scan, results, events and messages. What differs:
 the device is explicit (``load_database(..., device=)``, ``"cuda"`` by
-default); ``preload(mesh=)`` raises ``NotImplementedError`` naming its
-ROADMAP item; after
-``preload``, ``query_range`` is served from the device index too; and the
-thread pools are sized from the CPUs this process may run on.
+default), and ``preload(mesh=)`` takes a
+:class:`.parallel.mesh.CorpusMesh`; after ``preload``, ``query_range`` is
+served from the device index too; and the thread pools are sized from the CPUs this process may run on.
 """
 
 from __future__ import annotations
@@ -41,7 +40,6 @@ import torch
 
 from . import _native
 from . import events as ev
-from ._roadmap import not_ported
 from .attributes import AttributeTable, AttributeValue
 from .build import _local_indices
 from .errors import InvalidArgs, InvalidData
@@ -999,9 +997,12 @@ class StoredDatabase:
         :meth:`query_range` are served from :class:`.serving.DeviceIndex`
         — the warm serving mode — in the layout the JAX package's policy
         picks (on the card, a bucketed index scans with kernel K-A), with
-        the stored OPQ rotation when there is one. A ``mesh`` (the JAX
-        package's sharded serving) is not ported yet and raises
-        ``NotImplementedError``.
+        the stored OPQ rotation when there is one. With a ``mesh`` (a
+        :class:`.parallel.mesh.CorpusMesh`; a collective call, made by
+        every rank) the index is a :class:`.serving.ShardedIndex` on the
+        mesh's devices, in the same layout: buckets split on the
+        partition axis or rows split across the ranks, a local top-k on
+        each and a k-best merge.
 
         Partition files load CONCURRENTLY on a thread pool — the native
         inflate+hash pass releases the GIL, so open→inflate→decode
@@ -1011,10 +1012,8 @@ class StoredDatabase:
         ``Starting/FinishedPartitionLoad`` from worker threads; pass a
         thread-safe handler.
         """
-        from .serving import DeviceIndex
+        from .serving import DeviceIndex, ShardedIndex
 
-        if mesh is not None:
-            raise not_ported("A sharded preload (mesh=)", 20)
         centroids = self._load_partition_centroids()
         codebooks = self._load_codebooks()
         rotation = self._load_rotation()
@@ -1027,9 +1026,11 @@ class StoredDatabase:
         ])
         vector_ids = [vid for p in parts for vid in p.vector_ids]
         local = _local_indices(pidx, self.num_partitions)
-        index = DeviceIndex(centroids, codebooks, codes.astype(np.int32),
-                            pidx, rotation=rotation, metric=self.metric,
-                            device=self.device)
+        place = (dict(device=self.device) if mesh is None
+                 else dict(mesh=mesh))
+        index = (DeviceIndex if mesh is None else ShardedIndex)(
+            centroids, codebooks, codes.astype(np.int32), pidx,
+            rotation=rotation, metric=self.metric, **place)
         self._dev = (index, pidx, local, vector_ids)
 
     def query_batch(self, vs, k: int, nprobe: int,

@@ -15,6 +15,15 @@ JAX package's ``streaming.py``).
   ``ops.encode.encode`` (nearest partition, then the residual's codes,
   cuBLAS in full f32), the last chunk zero-padded to the same shape.
 
+:meth:`StreamingDatabaseBuilder.with_mesh` shards the encode over a
+:class:`.parallel.mesh.CorpusMesh` (a collective build, every rank the
+same source and settings): rank 0 trains and broadcasts the centroids,
+codebooks and rotation (exact copies); each rank reads and encodes its
+block of each chunk, blocks whole :data:`.ops.distance.ASSIGN_CHUNK` row
+units, so its products are the very ones the unsharded encode runs on
+those rows; the codes are gathered, bit-identical to the unsharded
+build's.
+
 Host state is O(N) only in ids and codes. The result is a regular
 :class:`.build.Database` with ``residues=None``: ``reconstruct`` and
 ``rerank=`` raise :class:`InvalidArgs`. The numpy ``rng`` draws in the
@@ -35,10 +44,11 @@ if TYPE_CHECKING:                                # annotation-only import
     from .build import Database
 
 from . import events as ev
-from ._roadmap import not_ported
 from .errors import InvalidArgs
 from .events import EventHandler, _noop
+from .ops.distance import ASSIGN_CHUNK
 from .parallel.build import COARSE_TRAIN_CAP, PQ_TRAIN_CAP
+from .parallel.mesh import block_sizes, broadcast, gather_blocks
 
 #: Byte budget of the training sample (raw f32 rows): at M=1536 about
 #: 175k rows, at M=96 the row caps bind first.
@@ -104,6 +114,7 @@ class StreamingDatabaseBuilder:
         self._sample_bytes = SAMPLE_BYTES
         self._chunk_rows: Optional[int] = None
         self._metric = "l2"
+        self._mesh = None
 
     def with_partitions(self, p: int) -> "StreamingDatabaseBuilder":
         if p <= 0:
@@ -178,71 +189,28 @@ class StreamingDatabaseBuilder:
         return self
 
     def with_mesh(self, mesh) -> "StreamingDatabaseBuilder":
-        raise not_ported("A sharded streamed encode (with_mesh)", 20)
+        """Shards the streamed encode over a
+        :class:`.parallel.mesh.CorpusMesh` (extension; see the module
+        docstring). :meth:`build` becomes a collective call; training
+        stays on rank 0, and the database every rank gets lives on the
+        mesh's device."""
+        self._mesh = mesh
+        return self
 
-    def build_with_events(self, events: EventHandler) -> "Database":
-        """Name-parity alias for :meth:`build` (``build.rs:73-78``)."""
-        return self.build(events)
-
-    def build(self, events: EventHandler = _noop) -> "Database":
-        """The sampled training, then the streamed encode, with the
-        in-memory builder's phases and events (``build.rs:78-129``)."""
-        from .build import Database, _make_uuids
+    def _train(self, rows: np.ndarray, rng, key: int, s_coarse: int,
+               s_pq: int, events: EventHandler, dev: torch.device):
+        """The fits on the sample ``rows`` of the source: ``(centroids [P,
+        M], codebooks [D, C, M/D], rotation [M, M] or None)``, the tensors
+        on ``dev``."""
         from .host import normalize_rows
         from .ops import kmeans
         from .ops.distance import assign_chunked
-        from .ops.encode import encode
 
-        n, m = self._n, self._m
+        m = self._m
         p, d, c = (self._num_partitions, self._num_divisions,
                    self._num_clusters)
-        if n < p:
-            raise InvalidArgs(f"vs has fewer vectors than k: {n} < {p}")
-        if n < c:
-            raise InvalidArgs(f"vs has fewer vectors than k: {n} < {c}")
-        if m % d != 0:
-            raise InvalidArgs(f"vector size ({m}) is not divisible by {d}")
-
-        # Row- and byte-capped sample sizes, floored at the cluster counts
-        # (a budget below k rows cannot train k centroids).
-        byte_rows = max(1, self._sample_bytes // (4 * m))
-        s_coarse = min(n, max(self._coarse_cap, p), max(byte_rows, p))
-        s_pq = min(n, max(self._pq_cap, c), max(byte_rows, c))
-
-        seed = (np.random.SeedSequence().entropy if self._seed is None
-                else self._seed)
-        rng = np.random.default_rng(seed)
-        dev = self._device
-        key = int(np.uint32(rng.integers(0, 2 ** 32)))
         g_coarse = torch.Generator(dev).manual_seed(key)
         g_pq = torch.Generator(dev).manual_seed(key + 2 ** 32)
-
-        events(ev.StartingIdAssignment())
-        vector_ids = _make_uuids(n, rng)
-        events(ev.FinishedIdAssignment())
-
-        # One sample serves both fits (uniform rows either way), drawn
-        # WITHOUT replacement so that it never comes up short of the
-        # cluster-count floor.
-        s_max = max(s_coarse, s_pq)
-        if s_max >= n:
-            rows = np.arange(n, dtype=np.int64)
-        elif 2 * s_max >= n:
-            # Dense sample: a full permutation costs <= 2x the sample.
-            rows = np.sort(rng.permutation(n)[:s_max].astype(np.int64))
-        else:
-            # Sparse sample: draw and dedupe, topping up the shortfall.
-            rows = np.unique(rng.integers(0, n, size=s_max, dtype=np.int64))
-            for _ in range(16):
-                if len(rows) >= s_max:
-                    break
-                extra = rng.integers(0, n, size=2 * (s_max - len(rows)),
-                                     dtype=np.int64)
-                rows = np.unique(np.concatenate([rows, extra]))
-            else:  # pragma: no cover - probabilistically unreachable
-                rows = np.sort(rng.permutation(n)[:s_max].astype(np.int64))
-            if len(rows) > s_max:   # trim the overshoot; sorted for IO
-                rows = np.sort(rows[rng.permutation(len(rows))[:s_max]])
         sample = _gather_rows(self._source, rows, m)
         if self._metric == "cosine":
             sample = normalize_rows(sample)
@@ -288,26 +256,110 @@ class StreamingDatabaseBuilder:
             del divided
         for i in range(d):
             events(ev.FinishedQuantization(i))
-
-        # Training is done: the sample and its device copies go before the
+        # The sample and its device copies go with this frame, before the
         # encode stream.
-        del sample, sub, sample_dev, pq_dev, residues_s, pidx_s
+        return cents, pq.centroids, rotation
+
+    def build_with_events(self, events: EventHandler) -> "Database":
+        """Name-parity alias for :meth:`build` (``build.rs:73-78``)."""
+        return self.build(events)
+
+    def build(self, events: EventHandler = _noop) -> "Database":
+        """The sampled training, then the streamed encode, with the
+        in-memory builder's phases and events (``build.rs:78-129``)."""
+        from .build import Database, _make_uuids
+        from .host import normalize_rows
+        from .ops.encode import encode
+
+        n, m = self._n, self._m
+        p, d, c = (self._num_partitions, self._num_divisions,
+                   self._num_clusters)
+        if n < p:
+            raise InvalidArgs(f"vs has fewer vectors than k: {n} < {p}")
+        if n < c:
+            raise InvalidArgs(f"vs has fewer vectors than k: {n} < {c}")
+        if m % d != 0:
+            raise InvalidArgs(f"vector size ({m}) is not divisible by {d}")
+
+        # Row- and byte-capped sample sizes, floored at the cluster counts
+        # (a budget below k rows cannot train k centroids).
+        byte_rows = max(1, self._sample_bytes // (4 * m))
+        s_coarse = min(n, max(self._coarse_cap, p), max(byte_rows, p))
+        s_pq = min(n, max(self._pq_cap, c), max(byte_rows, c))
+
+        mesh = self._mesh
+        seed = (np.random.SeedSequence().entropy if self._seed is None
+                else self._seed)
+        if mesh is not None and self._seed is None:   # one seed, rank 0's
+            seed = int(broadcast(mesh, torch.tensor(seed % 2 ** 63)))
+        rng = np.random.default_rng(seed)
+        dev = self._device if mesh is None else mesh.device
+        key = int(np.uint32(rng.integers(0, 2 ** 32)))
+
+        events(ev.StartingIdAssignment())
+        vector_ids = _make_uuids(n, rng)
+        events(ev.FinishedIdAssignment())
+
+        # One sample serves both fits (uniform rows either way), drawn
+        # WITHOUT replacement so that it never comes up short of the
+        # cluster-count floor.
+        s_max = max(s_coarse, s_pq)
+        if s_max >= n:
+            rows = np.arange(n, dtype=np.int64)
+        elif 2 * s_max >= n:
+            # Dense sample: a full permutation costs <= 2x the sample.
+            rows = np.sort(rng.permutation(n)[:s_max].astype(np.int64))
+        else:
+            # Sparse sample: draw and dedupe, topping up the shortfall.
+            rows = np.unique(rng.integers(0, n, size=s_max, dtype=np.int64))
+            for _ in range(16):
+                if len(rows) >= s_max:
+                    break
+                extra = rng.integers(0, n, size=2 * (s_max - len(rows)),
+                                     dtype=np.int64)
+                rows = np.unique(np.concatenate([rows, extra]))
+            else:  # pragma: no cover - probabilistically unreachable
+                rows = np.sort(rng.permutation(n)[:s_max].astype(np.int64))
+            if len(rows) > s_max:   # trim the overshoot; sorted for IO
+                rows = np.sort(rows[rng.permutation(len(rows))[:s_max]])
+        if mesh is None or mesh.rank == 0:
+            cents, books, rotation = self._train(rows, rng, key, s_coarse,
+                                                 s_pq, events, dev)
+        else:
+            cents = torch.empty((p, m), device=dev)
+            books = torch.empty((d, c, m // d), device=dev)
+            rotation = np.empty((m, m), np.float32) if self._opq_iters \
+                else None
+        if mesh is not None:             # exact copies of rank 0's
+            cents, books = broadcast(mesh, cents), broadcast(mesh, books)
+            if rotation is not None:
+                rotation = broadcast(mesh, torch.as_tensor(rotation)) \
+                    .numpy()
 
         chunk = min(self._chunk_rows or max(1, CHUNK_BYTES // (4 * m)), n)
-        books = pq.centroids
         rot_dev = (None if rotation is None
                    else torch.as_tensor(rotation, device=dev))
         pidx = np.empty(n, np.int32)
         codes = np.empty((n, d), np.uint32)
+        # Each rank's block of a chunk: whole ASSIGN_CHUNK units of it.
+        ca, cz = (0, chunk) if mesh is None else \
+            mesh.block(chunk, ASSIGN_CHUNK)
         for lo in range(0, n, chunk):
             hi = min(n, lo + chunk)
-            xb = np.asarray(self._source[lo:hi], dtype=np.float32)
+            xb = np.asarray(self._source[min(hi, lo + ca):min(hi, lo + cz)],
+                            dtype=np.float32)
             if self._metric == "cosine":
                 xb = normalize_rows(xb)
-            if hi - lo < chunk:                # pad rows' codes are dropped
-                xb = np.pad(xb, ((0, chunk - (hi - lo)), (0, 0)))
-            pi, co = encode(torch.as_tensor(xb, device=dev), cents, books,
-                            rot_dev)
+            if len(xb) < cz - ca:              # pad rows' codes are dropped
+                xb = np.pad(xb, ((0, cz - ca - len(xb)), (0, 0)))
+            pi, co = (encode(torch.as_tensor(xb, device=dev), cents, books,
+                             rot_dev) if cz > ca else
+                      (torch.zeros(0, device=dev), torch.zeros((0, d),
+                                                                device=dev)))
+            if mesh is not None:
+                sizes = block_sizes(mesh, chunk, ASSIGN_CHUNK)
+                pi = gather_blocks(mesh, pi.to(torch.int32), sizes)
+                co = gather_blocks(mesh, co.to(torch.int32), sizes)
             pidx[lo:hi] = pi[:hi - lo].cpu().numpy()
             codes[lo:hi] = co[:hi - lo].cpu().numpy()
 

@@ -22,6 +22,24 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo group of one rank in this process (a file store under
+    ``tmp_path``), as a CPU mesh; destroyed at teardown."""
+    import datetime
+
+    import torch.distributed as dist
+    from flechasdb_tpu_torch.parallel import corpus_mesh
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield corpus_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def same_results(got, want):
     """Two lists of ``QueryResult``: the same vectors in the same order,
     distances within the tolerance."""

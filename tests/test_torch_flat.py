@@ -30,7 +30,8 @@ from flechasdb_tpu_torch import flat as pflat
 from flechasdb_tpu_torch.asyncdb import AsyncLocalFileSystem
 from flechasdb_tpu_torch.ops.exact import exact_topk
 
-from _torch_helpers import cuda, same_ranked  # noqa: F401
+from _torch_helpers import (cuda, midpoint_radius, same_ranked,  # noqa
+                            world_of_one)
 
 N, M, K = 500, 24, 5
 FIXTURES = Path(__file__).parent / "fixtures"
@@ -227,15 +228,42 @@ def test_flat_errors_carry_the_jax_messages(pair):
         ft.FlatDatabase(x, metric="hamming", device="cpu")
 
 
-def test_flat_mesh_raises_naming_item_20(pair, tmp_path):
+def test_flat_preload_mesh_equals_unsharded(pair, tmp_path, world_of_one):
+    """Both flat tiers' ``preload(mesh=)`` on a world of one: exact
+    batches (filtered too) and range hits equal the unsharded tier's, the
+    corpus held as the rank's block; an append re-places it under the
+    same mesh."""
     _, x, _, pdb = pair
-    with pytest.raises(NotImplementedError, match="item 20"):
-        pdb.preload(mesh=object())
     root = ft.save_flat_database(pdb, ft.LocalFileSystem(tmp_path))
     sdb = ft.load_flat_database(ft.LocalFileSystem(tmp_path),
                                 f"{root}.binpb", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        sdb.preload(mesh=object())
+    plain = ft.FlatDatabase(x, seed=1, metric=pdb.metric, device="cpu")
+    for i in range(0, N, 3):
+        plain.set_attribute_at(i, ("tenant", ["a", "b"][i % 2]))
+    q = _queries(x)
+    where = ft.Eq("tenant", "a")
+    want = [plain.query_batch(q, 5), plain.query_batch(q, 5, where=where)]
+    keys = [r.squared_distance for r in plain.query(q[0], 40)]
+    radius = midpoint_radius(keys, 0.5)
+    want_range = plain.query_range(q[0], radius)
+    for db in (pdb, sdb):
+        db.preload(mesh=world_of_one)
+        assert db._mesh is world_of_one
+        got = [db.query_batch(q, 5), db.query_batch(q, 5, where=where)]
+        for g, w in zip(got, want):
+            assert [[(r.vector_id, r.squared_distance) for r in rs]
+                    for rs in g] == [[(r.vector_id, r.squared_distance)
+                                      for r in rs] for rs in w]
+        assert [(r.vector_id, r.squared_distance)
+                for r in db.query_range(q[0], radius)] == \
+            [(r.vector_id, r.squared_distance) for r in want_range]
+    plain.append(x[:3], pdb.append(x[:3]))
+    assert pdb._dev is None
+    assert [(r.vector_id, r.squared_distance)
+            for r in pdb.query_batch(q[:1], 9)[0]] == \
+        [(r.vector_id, r.squared_distance)
+         for r in plain.query_batch(q[:1], 9)[0]]
+    assert pdb._mesh is world_of_one and len(pdb._dev) == N + 3
 
 
 def test_flat_on_a_missing_cuda_device_raises():

@@ -32,7 +32,8 @@ from flechasdb_tpu.memfs import MemoryFileSystem as JMemoryFileSystem
 from flechasdb_tpu_torch import _kernels, host, serialize
 from flechasdb_tpu_torch import stored as pstored
 
-from _torch_helpers import cuda, midpoint_radius, same_ranked  # noqa
+from _torch_helpers import (cuda, midpoint_radius, same_ranked,  # noqa
+                            world_of_one)
 
 N, M, P, D, C = 700, 16, 6, 4, 16
 K, NPROBE = 5, 3
@@ -430,13 +431,43 @@ def test_unported_options_raise_and_name_their_item(built, trees):
     _, x, _, _ = built
     base, (root, _) = trees
     mine, _ = _load_both(base / "port", root)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        mine.preload(mesh=object())
-    assert mine._dev is None
     with pytest.raises(ft.InvalidArgs, match="residues were not retained"):
         mine.to_database().reconstruct(0)
     with pytest.raises(ft.InvalidArgs, match="rerank requires"):
         mine.to_database().query_batch(x[:2], K, NPROBE, rerank=10)
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "masked"])
+def test_preload_mesh_equals_preload(built, trees, world_of_one, layout,
+                                     monkeypatch):
+    """``preload(mesh=)`` on a world of one serves a ``ShardedIndex`` whose
+    results, ranges and filtered batches are ``preload()``'s, bit for bit,
+    on both layouts."""
+    _, x, _, _ = built
+    base, (root, _) = trees
+    from flechasdb_tpu_torch import serving
+    monkeypatch.setattr(serving, "choose_layout", lambda *a: layout)
+    mine, _ = _load_both(base / "port", root)
+    plain, _ = _load_both(base / "port", root)
+    mine.preload(mesh=world_of_one)
+    plain.preload()
+    assert mine._dev[0].layout == f"sharded-{layout}"
+    q = _queries(x, 16)
+    for got, want in ((mine.query_batch(q, K, NPROBE),
+                       plain.query_batch(q, K, NPROBE)),
+                      ([mine.query(q[0], K, NPROBE)],
+                       [plain.query(q[0], K, NPROBE)])):
+        for g, w in zip(got, want):
+            assert [(r.vector_id, r.partition_index, r.vector_index,
+                     r.squared_distance) for r in g] == \
+                [(r.vector_id, r.partition_index, r.vector_index,
+                  r.squared_distance) for r in w]
+    keys = [r.squared_distance for r in plain.query(q[1], 20, P)]
+    radius = midpoint_radius(keys, 0.5)
+    assert [(r.vector_id, r.squared_distance)
+            for r in mine.query_range(q[1], radius, P)] == \
+        [(r.vector_id, r.squared_distance)
+         for r in plain.query_range(q[1], radius, P)]
 
 
 # -- updates --------------------------------------------------------------------

@@ -20,7 +20,7 @@ from flechasdb_tpu_torch import events as pev
 from flechasdb_tpu_torch import streaming
 from flechasdb_tpu_torch.streaming import StreamingDatabaseBuilder
 
-from _torch_helpers import event_pattern
+from _torch_helpers import event_pattern, world_of_one  # noqa: F401
 
 TIE_REL = 1e-5
 
@@ -310,7 +310,32 @@ def test_save_is_byte_equal_to_jax_and_loads_in_both(both, corpus,
         assert [r.vector_id for r in got] == [r.vector_id for r in want]
 
 
-def test_with_mesh_names_item_20():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        StreamingDatabaseBuilder(np.ones((4, 4), np.float32),
-                                 device="cpu").with_mesh(object())
+def test_streamed_build_sharded_encode_matches(world_of_one):
+    """``with_mesh`` (``tests/test_streaming.py:255-278``): partition
+    indices and codes bit-identical to the unsharded streamed build of the
+    same seed, the same ids, and a database that serves like it; with OPQ
+    too, whose rotation is broadcast."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+
+    def build(mesh, opq=0):
+        b = (StreamingDatabaseBuilder(x, device="cpu").with_partitions(16)
+             .with_divisions(4).with_clusters(16).with_seed(11)
+             .with_chunk_rows(700))       # 5 chunks, the last one padded
+        if opq:
+            b = b.with_opq(opq)
+        if mesh is not None:
+            b = b.with_mesh(mesh)
+        return b.build()
+
+    for opq in (0, 2):
+        base, sharded = build(None, opq), build(world_of_one, opq)
+        np.testing.assert_array_equal(base.partition_indices,
+                                      sharded.partition_indices)
+        np.testing.assert_array_equal(base.codes, sharded.codes)
+        assert base.vector_ids == sharded.vector_ids
+        if opq:
+            np.testing.assert_array_equal(base.rotation, sharded.rotation)
+        got = sharded.query(x[5], k=3, nprobe=16)
+        want = base.query(x[5], k=3, nprobe=16)
+        assert [r.vector_id for r in got] == [r.vector_id for r in want]
