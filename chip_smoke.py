@@ -17,7 +17,8 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    PyTorch version on the card at the main paths' shapes: K-A (ADC bucket
    scan) packed D=12, packed D=8 and unpacked C=200, and two tables of
    256 KB a cell, over a block's shared memory (D=256, C=256 packed and
-   D=64, C=1024 unpacked); ``adc_lookup`` (K-A over pre-gathered codes)
+   D=64, C=1024 unpacked) and GIST's packed D=60 (15 words a slot);
+   ``adc_lookup`` (K-A over pre-gathered codes)
    at G=640, D=8, C=256, L=1280 unpacked; K-B
    (fused Lloyd round) at the coarse fit (B=1, N=100k, K=100, M=1536), the
    PQ fit (B=12, N=100k, K=256, m=128), K=1024, the SIFT coarse fit (B=1,
@@ -81,8 +82,13 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    K=256, m=12: 12 does not divide 128, so K-B and not K-C) and at
    K=4096 with copies of centroid 3 at 7, 200 and 4095 (N=65,536), two
    calls bit-equal, and at the first two the dense route's sums and
-   counts equal to ``cluster_sums_ordered``'s. K-A is only checked here
-   and timed in phase 10.
+   counts equal to ``cluster_sums_ordered``'s. The GIST path's shapes
+   (phase 13), full and fast, timed, the pass's sums and counts equal to
+   ``cluster_sums_ordered``'s: K-B at the coarse fit (B=1, N=1M, K=1024,
+   M=960; K-B fast's chunked bands) and K-C at the PQ fit (B=60, N=1M,
+   K=256, m=16: the last of 8 groups holds 4 pad divisions), each K-C
+   also held to K-B's picks on the ungrouped data. K-A is only checked
+   here and timed in phase 10.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -233,8 +239,13 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ``query_bucketed`` at nprobe 8, 32 and 128 in query chunks sized as
    the JAX script sizes them (K-A), recall@10 not falling as nprobe
    grows, the bucket stats and the batch times; 64 queries at nprobe=32
-   equal to the CPU plain path on the same buckets. The streamed build:
-   the corpus copied to the host behind a read counter,
+   equal to the CPU plain path on the same buckets. The rerank row
+   (``benchmarks/deep10m.py:167-214``): ``DeviceIndex.query_rerank`` of
+   the 200 queries at nprobe=32 with the top 100 re-scored against the
+   corpus on the card, recall@10 at least 0.95 and at least the ADC
+   recall, printed beside the JAX record (0.990), 64 equal to the CPU
+   plain path on the same buckets and the host copy of the corpus. The
+   streamed build: that host copy behind a read counter,
    ``StreamingDatabaseBuilder(src, device="cuda")`` with the same P, D,
    C and seed: one gather of at most 2,097,152 sorted unique rows, then
    the encode chunks of at most ``CHUNK_BYTES // (4·96)`` rows in order;
@@ -261,7 +272,9 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    version at the end of each path; phase 4's are the buckets after the
    add, phase 5's those of the preloaded stored database, phase 6's the
    SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's,
-   phase 8's the f64 build's, phase 9's the Deep10M staged build's).
+   phase 8's the f64 build's, phase 9's the Deep10M staged build's,
+   phase 12's the MIPS buckets with their dot tables, phase 13's the
+   GIST buckets).
    K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
@@ -293,24 +306,77 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    phase runs after its unsharded reference and is counted alone: each
    build must launch K-B and the pass (and K-C at the SIFT shape), each
    bucketed query batch K-A.
+12. The ``dot`` and ``cosine`` metrics at the SIFT shape, run after phase
+   11 on phase 3's data and state. MIPS (``benchmarks/sweep.py:194-270``):
+   ``with_metric("dot")`` with phase 3's P, D, C and seed, every array
+   and id bit-equal to phase 3's build and its launches the same
+   (training is L2 for every metric); exact MIPS ground truth by
+   ``ops.exact.exact_topk(metric="dot")`` on the card, 64 queries of it
+   held to float64 inner products; ``DeviceIndex(layout="bucketed",
+   metric="dot")`` (K-A on the MIPS tables) at nprobe 1, 5, 10 and 50 and
+   with ``query_rerank(100)`` at nprobe 5 and 10: recall@10, coarse@10
+   and the batch times, rerank at nprobe 10 at least 0.9 and at least the
+   ADC recall; ``Database.query_batch`` on the policy's (masked) layout;
+   64 queries of each layout, with and without rerank, and 64 range
+   searches (a negative inner-product radius) on each, against the CPU
+   plain path. Its tree: the root's metric ``dot``, 8 cold queries (no
+   kernel) equal to the in-memory database's, ``preload()`` on buckets
+   (the policy held to bucketed by ``host.PAD_LIMIT``) and
+   ``query_batch(1000)`` through K-A bit-equal to the in-memory database
+   on buckets, ``publish_label`` → ``resolve_label`` → ``load_labeled``
+   (``examples/query_metric.py``). Cosine (``examples/query_metric.py:
+   27-40``): ``with_metric("cosine")`` over the same non-unit rows,
+   ground truth ``exact_topk`` over the normalized corpus, recall@10 on
+   both layouts with and without rerank, 64 queries of each equal to the
+   CPU path; ``FlatDatabase(metric="cosine")`` on the card equal to the
+   ground truth up to ties (no kernel); a zero query raising the JAX
+   package's ``InvalidArgs`` on the in-memory, flat, cold stored and
+   preloaded stored surfaces; the tree saved and loaded with its metric,
+   8 cold queries, ``preload`` and 1000 queries equal to the in-memory
+   database's. Each leg is counted alone: each build must launch K-B,
+   K-C and one pass a round, each bucketed batch K-A.
+13. The GIST1M shape (``benchmarks/sweep.py:272-309``), nothing cut, run
+   after phase 9 has freed its corpus: 1,000,000 x 960 rows and 1000
+   queries drawn on the card by ``synth.gmm_pair_device`` (256
+   components, intrinsic 32), copied to the host once; exact ground
+   truth by ``exact_topk`` at M=960. ``DatabaseBuilder(x, device="cuda")
+   .with_partitions(1024).with_divisions(60).with_clusters(256)
+   .with_residues(False)`` twice with one seed: the arrays and ids
+   bit-equal, the second's parts timed at its events (UUIDs, upload,
+   coarse seeding, coarse rounds on K-B at M=960, K=1024, division, PQ
+   seeding, PQ rounds on K-C at B=60, copy-out), the rounds a fit and the
+   builds' peak device memory printed; then ``with_fast_math()`` (K-B
+   fast, K-C fast): its recall@10 within 0.02 of the full build's and its
+   PQ inertia within 5%. Each build must launch its two kernels and one
+   pass a round, and not the other numerics'. Serving the full build:
+   ``DeviceIndex(layout="bucketed")`` (packed, 15 words a slot; K-A) at
+   nprobe 1, 5, 10 and 50 and ``query_rerank`` of the top 100 at
+   nprobe 10 against the corpus on the card (at least 0.9 and at least
+   the ADC recall): recall@10, coarse@10, the batch times and the
+   batches' peak device memory; 64 queries with and without rerank equal
+   to the CPU plain path on the same buckets and the host corpus;
+   ``Database.query_batch`` on the policy's layout, 64 equal to the
+   buckets'.
 
 Launch counts are zeroed just before each path (the build and its
-queries, phases 4, 5, 6, 7, 8, 9, and each sharded call of 11) and read
-just after; every kernel a
+queries, phases 4, 5, 6, 7, 8, 9, each sharded call of 11 and each leg
+of 12 and 13) and read just after; every kernel a
 path runs must have run, and every Lloyd round must have been followed
 by one cluster-sum pass. The line before the last is the kernels' JSON
 record: a row per TPU kernel of the JAX package, and one for the
 cluster-sum pass (the sum halves of the two Lloyd kernels; its
 ``library_ms`` is ``index_add_`` of the same sums), with its
-counterpart's launches over the paths (phases 2 to 9 and 11, the two
-ranks of phase 11 included), its time
+counterpart's launches over the paths (phases 2 to 9 and 11 to 13, the
+two ranks of phase 11 included), its time
 (``ms_by`` names the method; K-A's rows
 also carry ``warm_ms`` and ``host_ms``; K-B fast's, K-C's and K-C fast's
 ``assign_ms`` and ``assign_bound_ms``, the assignment alone at K-B's PQ
 shape and K-C's SIFT PQ shape; K-B's and K-B fast's ``deep10m``, their
 rounds at phase 1's Deep10M shapes beside their bounds and the pass's
-device time there, and K-B's final assignment round of phase 9), its plain
-version's and its
+device time there, and K-B's final assignment round of phase 9; the four
+Lloyd rows' ``gist``, the round at their GIST shape of phase 1, the pass's
+device time there and, but for K-B, the assignment alone, beside their
+bounds), its plain version's and its
 bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
 published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; their
@@ -325,6 +391,7 @@ non-zero with no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -363,6 +430,15 @@ F64_N, F64_P = 20_000, 100
 DEEP_N, DEEP_NQ, DEEP_M, DEEP_P, DEEP_D = 10_000_000, 200, 96, 4096, 8
 DEEP_NPROBES, DEEP_NPROBE, DEEP_CHECK = (8, 32, 128), 32, 10_000
 DEEP_COARSE_N, DEEP_PQ_N = 2 << 20, 1 << 20
+DEEP_RERANK_RECORD = 0.990       # the JAX record (benchmarks/RESULTS.md:209)
+# Phase 12: benchmarks/sweep.py:248-270's MIPS rows on phase 3's data,
+# (nprobe, rerank depth or None).
+MIPS_ROWS = ((1, None), (5, None), (10, None), (50, None), (5, RERANK),
+             (10, RERANK))
+# Phase 13: the JAX package's GIST1M shape (benchmarks/sweep.py:272-309),
+# nothing cut.
+GIST_N, GIST_NQ, GIST_M, GIST_P, GIST_D = 1_000_000, 1000, 960, 1024, 60
+GIST_NPROBES, GIST_NPROBE = (1, 5, 10, 50), 10
 
 SRC_A = "flechasdb_tpu_torch/csrc/adc_scan.cu"
 SRC_B = "flechasdb_tpu_torch/csrc/lloyd_round.cu"
@@ -728,7 +804,8 @@ def parity_lloyd(torch, gen, b, n, k, m, dup=False, time_it=True,
 
         def plain():
             return lloyd.lloyd_round_grouped_plain(xg, c, fast_math=fast)
-        x_bytes = xg.numel() * 4
+        # The function reads the B divisions, not the grouping's pad ones.
+        x_bytes = x.numel() * 4
     else:
         def kernel():
             return lloyd.lloyd_round(x, c, fast_math=fast)
@@ -1189,30 +1266,30 @@ def check_build(db, x, p, d, c) -> None:
             "the build did not quantize the data")
 
 
-def main_path_scan_args(torch, index, q, nprobe):
+def main_path_scan_args(torch, index, q, nprobe, metric="l2"):
     """K-A's arguments ``(bcodes, ftab, bidx, lengths)`` and ``d`` as a
     path's query batch gives them: its bucketed index and the tables of
-    its queries."""
+    its queries (``metric="dot"``: the MIPS tables)."""
     from flechasdb_tpu_torch.ops import adc, bucketed
     bk = index.buckets
     d, c, _ = index.codebooks.shape
     qd = torch.as_tensor(q, device="cuda")
-    coarse = adc.coarse_scores(qd, index.centroids)
+    coarse = adc.coarse_scores(qd, index.centroids, metric)
     probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
     tables = bucketed.probed_tables(qd, index.centroids, index.codebooks,
-                                    probed, coarse=coarse,
+                                    probed, metric, coarse=coarse,
                                     rotation=index.rotation)
     return (bk.codes, tables.reshape(-1, d * c).contiguous(),
             probed.reshape(-1).to(torch.int32).contiguous(),
             bk.lengths[probed].reshape(-1).contiguous()), d
 
 
-def scan_at_main_path(torch, index, q, nprobe, what):
+def scan_at_main_path(torch, index, q, nprobe, what, metric="l2"):
     """K-A against its plain version on a path's own bucketed index and
     the tables of its query batch (these launches are not counted in the
     path's run, which has ended)."""
     from flechasdb_tpu_torch.ops import scan
-    args, d = main_path_scan_args(torch, index, q, nprobe)
+    args, d = main_path_scan_args(torch, index, q, nprobe, metric)
     return scan_case(
         torch, f"adc_scan at {what} buckets: codes "
         f"{tuple(index.buckets.codes.shape)} G={args[1].shape[0]}",
@@ -1308,14 +1385,8 @@ def sift_run(torch, seed: int):
     t0 = time.perf_counter()
     gt = ground_truth(torch, x, q, K_TOP)
 
-    def recall(rows):
-        return float(np.mean([len(set(rows[b].tolist()) & set(gt[b].tolist()))
-                              / K_TOP for b in range(len(q))]))
-
-    coarse = float(np.mean(
-        [np.isin(db.partition_indices[gt[b]], adc[2][b]).mean()
-         for b in range(len(q))]))
-    r_adc, r_rr = recall(adc[1]), recall(rr[1])
+    coarse = coarse_at(db.partition_indices, gt, adc[2])
+    r_adc, r_rr = recall_at(adc[1], gt), recall_at(rr[1], gt)
     log(f"SIFT quality over {SIFT_NQ} queries ({time.perf_counter() - t0:.3f}"
         f" s): recall@10 {r_adc:.4f}  coarse@10 {coarse:.4f}  recall@10 "
         f"after rerank {RERANK} {r_rr:.4f}")
@@ -1379,7 +1450,8 @@ def sift_run(torch, seed: int):
     require(peak <= masked.hbm_budget_bytes,
             f"the masked scan took {peak} bytes, over its budget")
     state = {"index": index, "arrays": arrays, "q": q, "adc": adc, "db": db,
-             "batch": qb_res, "x": x, "gt": gt, "recall": r_adc}
+             "batch": qb_res, "x": x, "gt": gt, "recall": r_adc,
+             "build_launches": after_build}
     return launches, scan_at_main_path(torch, index, q, SIFT_NPROBE,
                                        "the SIFT path's"), state
 
@@ -1891,9 +1963,10 @@ def event_timed_build(torch, builder):
             marks["FinishedQuantization"] - marks["StartingQuantization"])
 
 
-def pq_error(torch, db) -> float:
+def pq_error(torch, db, residues=None) -> float:
     """Mean over rows of ``‖residue·R − reconstruction‖²`` (``R`` the OPQ
-    rotation, or none), on the card: the PQ inertia a row."""
+    rotation, or none), on the card: the PQ inertia a row. ``residues``:
+    a tensor on the card in the place of ``db.residues``."""
     from flechasdb_tpu_torch.ops import kmeans, opq
     m = db.vector_size
     rot = (torch.eye(m, device="cuda") if db.rotation is None
@@ -1902,8 +1975,9 @@ def pq_error(torch, db) -> float:
         torch.as_tensor(db.codebooks, device="cuda"),
         torch.as_tensor(np.ascontiguousarray(db.codes.T.astype(np.int64)),
                         device="cuda"), None, None)
-    return opq.quantization_error(torch.as_tensor(db.residues, device="cuda"),
-                                  rot, pq, d=db.num_divisions)
+    if residues is None:
+        residues = torch.as_tensor(db.residues, device="cuda")
+    return opq.quantization_error(residues, rot, pq, d=db.num_divisions)
 
 
 def recall_at(rows: np.ndarray, gt: np.ndarray) -> float:
@@ -1977,8 +2051,7 @@ def fast_sift(torch, ft, sift: dict, seed: int) -> None:
                         layout="bucketed", device="cuda")
     _, rows, probed = index.query(q, K_TOP, SIFT_NPROBE)
     recall = recall_at(rows, gt)
-    coarse = float(np.mean([np.isin(db.partition_indices[gt[b]],
-                                    probed[b]).mean() for b in range(len(q))]))
+    coarse = coarse_at(db.partition_indices, gt, probed)
     log(f"fast SIFT: build {build_s:.3f} s (coarse fit {coarse_s:.3f} s, PQ"
         f" fit {pq_s:.3f} s); recall@10 {recall:.4f} (phase 3's "
         f"{sift['recall']:.4f}), coarse@10 {coarse:.4f}; PQ inertia a row "
@@ -2766,27 +2839,34 @@ def deep_staged(torch, x, seed: int):
     return second, launches, final
 
 
-def deep_serve(torch, q_dev, built, gt: np.ndarray):
-    """The staged build's buckets, ``query_bucketed`` at each of
+def deep_serve(torch, q_dev, x, xh, built, gt: np.ndarray):
+    """The staged build's ``DeviceIndex(layout="bucketed")`` (its buckets
+    made by ``ops.bucketed.bucketize``), ``query_bucketed`` at each of
     DEEP_NPROBES in query chunks as ``benchmarks/deep10m.py`` sizes them,
-    recall@10, and 64 queries at DEEP_NPROBE against the CPU plain path.
-    Returns ``(recall at DEEP_NPROBE, the launch counts read after the
-    timed queries and before the checks, K-A case)``."""
-    import types
+    recall@10, the rerank row (``query_rerank`` of the top RERANK at
+    DEEP_NPROBE against the device corpus ``x``), and 64 queries at
+    DEEP_NPROBE against the CPU plain path on the same buckets, with and
+    without rerank (the host corpus ``xh``). Returns ``(recall at
+    DEEP_NPROBE, the launch counts read after the timed queries and before
+    the checks, K-A case)``."""
     from flechasdb_tpu_torch import _kernels
-    from flechasdb_tpu_torch.ops.bucketed import (Buckets, bucketize,
-                                                  query_bucketed)
-    cents, books = built.partition_centroids, built.codebooks
+    from flechasdb_tpu_torch.ops.bucketed import Buckets, query_bucketed
+    from flechasdb_tpu_torch.serving import DeviceIndex, _rerank_exact
     t0 = time.perf_counter()
     pidx = built.partition_indices.cpu().numpy().astype(np.int32)
-    bk = bucketize(built.codes.cpu().numpy(), pidx, DEEP_P, device="cuda")
+    index = DeviceIndex(built.partition_centroids.cpu().numpy(),
+                        built.codebooks.cpu().numpy(),
+                        built.codes.cpu().numpy().astype(np.int32), pidx,
+                        layout="bucketed", device="cuda")
     torch.cuda.synchronize()
     bucket_s = time.perf_counter() - t0
+    cents, books, bk = index.centroids, index.codebooks, index.buckets
     counts = np.bincount(pidx, minlength=DEEP_P)
     words, l_pad = bk.codes.shape[1], bk.codes.shape[2]
-    log(f"Deep10M buckets: bucketize {bucket_s:.3f} s; avg_len "
-        f"{counts.mean():.1f}, max_len {counts.max()}, l_pad {l_pad}, packed "
-        f"words {words}, padded bytes {DEEP_P * l_pad * (words + 1) * 4}")
+    log(f"Deep10M buckets: DeviceIndex(layout='bucketed') {bucket_s:.3f} s; "
+        f"avg_len {counts.mean():.1f}, max_len {counts.max()}, l_pad {l_pad}"
+        f", packed words {words}, padded bytes "
+        f"{DEEP_P * l_pad * (words + 1) * 4}")
 
     def run(nprobe):
         per_q = nprobe * l_pad * (DEEP_D + 2) * 4
@@ -2809,43 +2889,61 @@ def deep_serve(torch, q_dev, built, gt: np.ndarray):
             f" in chunks of {cb}: recall@10 {recalls[nprobe]:.4f}, batch "
             f"{statistics.median(ms):.3f} ms (median of 3: "
             f"{', '.join(f'{v:.3f}' for v in ms)})")
+    qh = q_dev.cpu().numpy()
+    kw = dict(k=K_TOP, nprobe=DEEP_NPROBE, rerank=RERANK)
+    rr = index.query_rerank(qh, x, **kw)
+    rr_ms = []
+    for _ in range(3):
+        _, t = timed(lambda: index.query_rerank(qh, x, **kw))
+        rr_ms.append(t)
     served = dict(_kernels.LAUNCHES)
+    r_rr = recall_at(rr[1], gt)
+    log(f"Deep10M DeviceIndex.query_rerank({len(qh)}, k={K_TOP}, nprobe="
+        f"{DEEP_NPROBE}, rerank={RERANK}) against the {DEEP_N}-row corpus "
+        f"on the card: recall@10 {r_rr:.4f} (ADC {recalls[DEEP_NPROBE]:.4f}"
+        f"; the JAX record {DEEP_RERANK_RECORD}, benchmarks/RESULTS.md:209), "
+        f"batch {statistics.median(rr_ms):.3f} ms (median of 3: "
+        f"{', '.join(f'{v:.3f}' for v in rr_ms)})")
     for lo, hi in zip(DEEP_NPROBES, DEEP_NPROBES[1:]):
         require(recalls[hi] >= recalls[lo], f"recall fell from nprobe {lo} "
                 f"({recalls[lo]}) to {hi} ({recalls[hi]})")
+    require(r_rr >= 0.95 and r_rr >= recalls[DEEP_NPROBE],
+            f"Deep10M rerank recall {r_rr} below 0.95 or the ADC recall "
+            f"{recalls[DEEP_NPROBE]}")
 
     t0 = time.perf_counter()
     qc = q_dev[:N_CHECK]
     got = query_bucketed(qc, cents, books, bk, k=K_TOP, nprobe=DEEP_NPROBE)
     want = query_bucketed(qc.cpu(), cents.cpu(), books.cpu(),
-                          Buckets(*(a.cpu() for a in bk)), k=K_TOP,
+                          Buckets(*(a.cpu() for a in bk)), k=RERANK,
                           nprobe=DEEP_NPROBE)
     swapped = same_arrays((got[0].cpu().numpy(), got[1].cpu().numpy()),
-                          (want[0].numpy(), want[1].numpy()),
+                          (want[0][:, :K_TOP].numpy(),
+                           want[1][:, :K_TOP].numpy()),
                           "Deep10M staged buckets vs CPU")
+    want_rr = _rerank_exact(qc.cpu(), want[1], torch.isfinite(want[0]),
+                            torch.from_numpy(xh), k=K_TOP)
+    swapped += same_arrays((rr[0][:N_CHECK], rr[1][:N_CHECK]),
+                           tuple(t.numpy() for t in want_rr),
+                           "Deep10M staged rerank vs CPU")
     log(f"Deep10M staged: {N_CHECK} queries at nprobe={DEEP_NPROBE} equal to "
-        f"the CPU plain path ({swapped} tie swaps; "
+        f"the CPU plain path on the same buckets, with and without rerank "
+        f"{RERANK} (the host corpus) ({swapped} tie swaps; "
         f"{time.perf_counter() - t0:.3f} s)")
-    index = types.SimpleNamespace(buckets=bk, centroids=cents,
-                                  codebooks=books, rotation=None)
-    case = scan_at_main_path(torch, index, q_dev[:N_CHECK].cpu().numpy(),
-                             DEEP_NPROBE, "the Deep10M staged build's")
+    case = scan_at_main_path(torch, index, qh[:N_CHECK], DEEP_NPROBE,
+                             "the Deep10M staged build's")
     return recalls[DEEP_NPROBE], served, case
 
 
-def deep_streamed(torch, ft, x, q, gt: np.ndarray, seed: int,
+def deep_streamed(torch, ft, xh, q, gt: np.ndarray, seed: int,
                   staged_recall: float) -> None:
-    """``StreamingDatabaseBuilder`` over the corpus copied to the host
-    (DEEP_N rows) behind a read counter: the reads, the parts'
+    """``StreamingDatabaseBuilder`` over the host copy of the corpus
+    ``xh`` (DEEP_N rows) behind a read counter: the reads, the parts'
     times, ``Database.query_batch`` at DEEP_NPROBE on the policy's layout
     (recall against the staged build's, 64 queries against the CPU
     path), and the ``InvalidArgs`` of a database without residues."""
     from flechasdb_tpu_torch.parallel import COARSE_TRAIN_CAP, PQ_TRAIN_CAP
     from flechasdb_tpu_torch.streaming import CHUNK_BYTES
-    t0 = time.perf_counter()
-    xh = x[:DEEP_N].cpu().numpy()
-    log(f"Deep10M streamed: corpus to the host {time.perf_counter() - t0:.3f}"
-        f" s ({xh.nbytes} bytes)")
     src = ReadCounter(xh)
     timer = PartTimer(torch)
     db = (ft.StreamingDatabaseBuilder(src, device="cuda")
@@ -2942,14 +3040,19 @@ def deep_run(torch, seed: int):
     log(f"Deep10M staged builds' peak device memory "
         f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
     deep_encode_check(torch, x, built)
+    t0 = time.perf_counter()
+    xh = x[:DEEP_N].cpu().numpy()
+    log(f"Deep10M corpus to the host {time.perf_counter() - t0:.3f} s "
+        f"({xh.nbytes} bytes): the CPU rerank check and the streamed build "
+        "read it")
     _kernels.reset_launches()
-    staged_recall, served, case = deep_serve(torch, q, built, gt)
+    staged_recall, served, case = deep_serve(torch, q, x, xh, built, gt)
     require(served["adc_scan"] > 0, "the Deep10M queries launched no "
             "adc_scan")
     del built
     _kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    deep_streamed(torch, ft, x, q.cpu().numpy(), gt, seed, staged_recall)
+    deep_streamed(torch, ft, xh, q.cpu().numpy(), gt, seed, staged_recall)
     streamed = dict(_kernels.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     log(f"Deep10M streamed build and queries: launches {streamed}; peak "
@@ -3354,6 +3457,653 @@ def sharded_run(torch, seed: int, head: dict, sift: dict, work: Path):
 
 
 
+# --- phase 12: the metrics ----------------------------------------------------
+
+#: The host fields a dot or cosine build must share with phase 3's build,
+#: bit for bit (training is L2 for every metric).
+ARRAY_FIELDS = ("partition_centroids", "partition_indices", "codebooks",
+                "codes", "residues")
+#: flechasdb_tpu/metrics.py:63-67's message for a zero query row.
+ZERO_QUERY = "cosine metric: query 0 has zero norm (no direction)"
+
+
+def bit_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+@contextlib.contextmanager
+def layout_policy(layout: str):
+    """The layout policy (``host.choose_layout``) held to ``layout`` while
+    the block runs: ``host.PAD_LIMIT`` past any padding (bucketed) or 0
+    (masked), then restored. The policy picks masked for the SIFT corpus;
+    the JAX package's sweep serves it from buckets."""
+    from flechasdb_tpu_torch import host
+    before = host.PAD_LIMIT
+    host.PAD_LIMIT = float("inf") if layout == "bucketed" else 0.0
+    try:
+        yield
+    finally:
+        host.PAD_LIMIT = before
+
+
+def database_on(ft, db, layout: str, device: str = "cuda"):
+    """A ``Database`` on ``db``'s arrays whose device index, built here,
+    has ``layout``."""
+    out = ft.Database(**ft.to_arrays(db), device=device)
+    with layout_policy(layout):
+        got = out._device_state().layout
+    require(got == layout, f"the index took the {got} layout")
+    return out
+
+
+def metric_builder(ft, x, seed: int, metric: str):
+    """Phase 3's build (P, D, C and seed) under ``metric``."""
+    return (ft.DatabaseBuilder(x, device="cuda").with_partitions(SIFT_P)
+            .with_divisions(SIFT_D).with_clusters(C).with_seed(seed)
+            .with_metric(metric))
+
+
+def coarse_at(pidx: np.ndarray, gt: np.ndarray, probed: np.ndarray) -> float:
+    """The share of the true neighbours whose partition was probed."""
+    return float(np.mean([np.isin(pidx[gt[b]], probed[b]).mean()
+                          for b in range(len(gt))]))
+
+
+def same_ids(got, want) -> bool:
+    """Two result lists bit for bit: ids and distances."""
+    return ([(r.vector_id, r.squared_distance) for r in got]
+            == [(r.vector_id, r.squared_distance) for r in want])
+
+
+def mips_truth_check(torch, xd, qd, keys, rows) -> None:
+    """``exact_topk(metric="dot")``'s keys and rows for ``qd`` against
+    float64 inner products on the card: the keys within the tolerance of
+    the float64 k smallest ``−⟨q, x⟩``, and each row's float64 key too
+    (rows equal up to ties). ``smallest_k`` turns the negative keys into
+    ordered integers, so a sign slip there shows here."""
+    keys64 = -(qd.double() @ xd.double().T)                  # [B, N]
+    best = torch.topk(keys64, K_TOP, dim=1, largest=False).values
+    best = torch.sort(best, dim=1).values
+    mine = keys64.gather(1, rows.long())
+    for what, got in (("keys", keys.double()), ("rows' keys", mine)):
+        off = (got - best).abs() > ATOL + RTOL * best.abs()
+        require(not bool(off.any()), f"exact_topk(metric='dot') {what} "
+                "differ from the float64 inner products")
+
+
+def mips_leg(torch, ft, sift: dict, seed: int, total: dict) -> dict:
+    """The MIPS build on phase 3's data (bit-equal to phase 3's, with its
+    launches), exact MIPS ground truth, ``sweep.py``'s rows on buckets,
+    ``Database.query_batch`` on the policy's layout, 64 queries of each
+    layout and 64 range searches against the CPU path."""
+    from flechasdb_tpu_torch.ops.exact import exact_topk
+    from flechasdb_tpu_torch.serving import DeviceIndex
+    x, q, base = sift["x"], sift["q"], sift["db"]
+    db, build_ms, launches = counted(
+        torch, lambda: metric_builder(ft, x, seed, "dot").build())
+    add_launches(total, launches)
+    needs(launches, SIFT_BUILD, "the MIPS build")
+    one_sum_pass_a_round(launches, "the MIPS build")
+    require(launches == sift["build_launches"], f"the MIPS build's launches "
+            f"{launches} differ from phase 3's {sift['build_launches']}")
+    for name in ARRAY_FIELDS:
+        require(bit_equal(getattr(db, name), getattr(base, name)),
+                f"the MIPS build's {name} differ from phase 3's")
+    require(db.vector_ids == base.vector_ids and db.metric == "dot",
+            "the MIPS build's ids or metric")
+    log(f"MIPS build (with_metric('dot'), {SIFT_N} x {SIFT_M}, P={SIFT_P}, "
+        f"D={SIFT_D}, C={C}): {build_ms / 1e3:.3f} s, launches {launches} "
+        f"(phase 3's build the same); every array and id bit-equal to phase "
+        "3's build")
+
+    xd, qd = (torch.as_tensor(a, device="cuda") for a in (x, q))
+    (gt_keys, gt_rows), gt_ms, _ = counted(
+        torch, lambda: exact_topk(qd, xd, k=K_TOP, metric="dot"))
+    gt = gt_rows.cpu().numpy().astype(np.int64)
+    mips_truth_check(torch, xd, qd[:N_CHECK], gt_keys[:N_CHECK],
+                     gt_rows[:N_CHECK])
+    del xd
+    log(f"MIPS ground truth (exact_topk(metric='dot'), {SIFT_NQ} queries): "
+        f"{gt_ms:.3f} ms; {N_CHECK} queries' keys and rows equal to float64"
+        " inner products on the card")
+
+    index = DeviceIndex(*sift["arrays"], layout="bucketed", metric="dot",
+                        device="cuda")
+    orig = db._device_originals()
+
+    def serve():
+        out = {}
+        for nprobe, rr in MIPS_ROWS:
+            def fn(nprobe=nprobe, rr=rr):
+                if rr is None:
+                    return index.query(q, K_TOP, nprobe)
+                return index.query_rerank(q, orig, K_TOP, nprobe, rr)
+            out[nprobe, rr] = fn(), [timed(fn)[1] for _ in range(3)]
+        return out
+    rows, _, served = counted(torch, serve)
+    add_launches(total, served)
+    needs(served, ("adc_scan",), "the MIPS bucketed batches")
+    probed = {n: rows[n, None][0][2] for n, rr in MIPS_ROWS if rr is None}
+    recalls = {}
+    for (nprobe, rr), (res, ms) in rows.items():
+        recalls[nprobe, rr] = recall_at(res[1], gt)
+        log(f"MIPS DeviceIndex(layout='bucketed', metric='dot') nprobe="
+            f"{nprobe}{f' rerank={rr}' if rr else ''}: recall@10 "
+            f"{recalls[nprobe, rr]:.4f}, coarse@10 "
+            f"{coarse_at(base.partition_indices, gt, probed[nprobe]):.4f}, "
+            f"batch of {SIFT_NQ} {statistics.median(ms):.3f} ms (median of "
+            f"3: {', '.join(f'{v:.3f}' for v in ms)})")
+    r_adc, r_rr = recalls[SIFT_NPROBE, None], recalls[SIFT_NPROBE, RERANK]
+    require(r_rr >= 0.9 and r_rr >= r_adc, f"MIPS rerank recall {r_rr} "
+            f"below 0.9 or the ADC recall {r_adc}")
+
+    kw = dict(k=K_TOP, nprobe=SIFT_NPROBE)
+    _, first_ms = timed(lambda: db.query_batch(q, **kw))
+    (qb, qbr), qb_ms, launches = counted(torch, lambda: (
+        db.query_batch(q, **kw), db.query_batch(q, rerank=RERANK, **kw)))
+    add_launches(total, launches)
+    layout = db._device_state().layout
+    log(f"MIPS Database.query_batch({SIFT_NQ}) on the {layout} layout (the "
+        f"policy's): first {first_ms:.3f} ms (builds its device index); "
+        f"warm, without and with rerank={RERANK}, {qb_ms:.3f} ms; recall@10 "
+        f"{recall_at(host_arrays(qb, sift['row_of'], K_TOP)[1], gt):.4f}, "
+        f"after rerank "
+        f"{recall_at(host_arrays(qbr, sift['row_of'], K_TOP)[1], gt):.4f}")
+
+    t0 = time.perf_counter()
+    qc = q[:N_CHECK]
+    cpu = DeviceIndex(*sift["arrays"], layout="bucketed", metric="dot",
+                      device="cpu")
+    orig_cpu = torch.as_tensor(
+        base.residues + base.partition_centroids[base.partition_indices])
+    swapped = same_arrays(tuple(a[:N_CHECK] for a in rows[SIFT_NPROBE,
+                                                          None][0][:2]),
+                          cpu.query(qc, **kw)[:2], "MIPS bucketed vs CPU")
+    swapped += same_arrays(
+        tuple(a[:N_CHECK] for a in rows[SIFT_NPROBE, RERANK][0]),
+        cpu.query_rerank(qc, orig_cpu, rerank=RERANK, **kw),
+        "MIPS bucketed rerank vs CPU")
+    ref = ft.Database(**ft.to_arrays(db), device="cpu")
+    for rr, got in ((None, qb), (RERANK, qbr)):
+        want = ref.query_batch(qc, rerank=rr, **kw)
+        for b in range(N_CHECK):
+            swapped += same_results(got[b], want[b],
+                                    f"MIPS query_batch rerank={rr} [{b}]")
+    log(f"MIPS: {N_CHECK} queries of each layout (bucketed, "
+        f"{ref._device_state().layout}), with and without rerank, equal to "
+        f"the CPU plain path ({swapped} tie swaps; "
+        f"{time.perf_counter() - t0:.3f} s)")
+
+    t0 = time.perf_counter()
+    radius = float(np.median(rows[SIFT_NPROBE, None][0][0][:N_CHECK,
+                                                           K_TOP - 1]))
+    require(radius < 0, f"the MIPS radius {radius} is not a negative "
+            "inner-product key")
+    got, range_ms, launches = counted(torch, lambda: index.query_range(
+        qc, radius, SIFT_NPROBE))
+    add_launches(total, launches)
+    needs(launches, ("adc_scan",), "the MIPS range batch on buckets")
+    want = cpu.query_range(qc, radius, SIFT_NPROBE)
+    edge = sum(same_hits(got[b], want[b], radius, f"MIPS range [{b}]")
+               for b in range(N_CHECK))
+    row_of, n_hits = sift["row_of"], 0
+    for b in range(N_CHECK):
+        mine = hits(db.query_range(qc[b], radius, SIFT_NPROBE), row_of)
+        edge += same_hits(mine, hits(ref.query_range(
+            qc[b], radius, SIFT_NPROBE), row_of), radius,
+            f"MIPS Database.query_range [{b}]")
+        n_hits += len(mine[0])
+    require(n_hits > 0, "the MIPS range searches found nothing")
+    log(f"MIPS range: radius {radius:.3f} (median 10th key, −⟨q, x⟩); "
+        f"DeviceIndex.query_range({N_CHECK}) on buckets {range_ms:.3f} ms "
+        f"and {N_CHECK} Database.query_range calls on the {layout} layout "
+        f"({n_hits} hits), equal to the CPU path ({edge} rows at the "
+        f"radius; {time.perf_counter() - t0:.3f} s)")
+    return {"db": db, "index": index, "gt": gt}
+
+
+def mips_stored(torch, ft, mips: dict, sift: dict, work: Path,
+                total: dict) -> None:
+    """The MIPS tree: its root's metric, 8 cold queries (no kernel) equal
+    to the in-memory database's, ``preload`` on buckets and 1000 queries
+    through K-A bit-equal to the in-memory database's on buckets, and a
+    published label resolved and loaded."""
+    db, q = mips["db"], sift["q"]
+    fs = ft.LocalFileSystem(work / "mips")
+    root, save_ms = timed(lambda: ft.save_database(db, fs))
+    sdb = ft.load_database(fs, f"{root}.binpb", device="cuda")
+    require(sdb.metric == "dot", f"the MIPS root's metric is {sdb.metric!r}")
+    cold, _, launches = counted(torch, lambda: [
+        timed(lambda: sdb.query(q[i], K_TOP, SIFT_NPROBE))
+        for i in range(N_SINGLE)])
+    require(not any(launches.values()), f"the cold queries launched "
+            f"{launches}")
+    swapped = sum(same_results(got, db.query(q[i], K_TOP, SIFT_NPROBE),
+                               f"MIPS cold query[{i}]")
+                  for i, (got, _) in enumerate(cold))
+    mem = database_on(ft, db, "bucketed")
+    want, _, launches = counted(torch, lambda: mem.query_batch(
+        q, K_TOP, SIFT_NPROBE))
+    add_launches(total, launches)
+    with layout_policy("bucketed"):
+        _, preload_ms = timed(sdb.preload)
+    layout = sdb._dev[0].layout
+    require(layout == "bucketed", f"the preloaded index is {layout}")
+    got, qb_ms, launches = counted(torch, lambda: sdb.query_batch(
+        q, K_TOP, SIFT_NPROBE))
+    add_launches(total, launches)
+    needs(launches, ("adc_scan",), "the preloaded MIPS batch")
+    require(all(same_ids(g, w) for g, w in zip(got, want)),
+            "the preloaded MIPS batch differs from the in-memory one")
+    ft.publish_label(fs, root)
+    resolved = ft.resolve_label(fs)
+    require(resolved == root, f"the label resolved to {resolved}")
+    labeled = ft.load_labeled(fs, device="cuda")
+    require(labeled.metric == "dot" and same_ids(
+        labeled.query(q[0], K_TOP, SIFT_NPROBE), cold[0][0]),
+        "the labeled root answers otherwise")
+    log(f"MIPS stored: save_database {save_ms:.3f} ms; root metric "
+        f"{sdb.metric!r}; {N_SINGLE} cold queries "
+        f"{', '.join(f'{ms:.3f}' for _, ms in cold)} ms (no kernel), equal "
+        f"to the in-memory database ({swapped} tie swaps); preload "
+        f"{preload_ms:.3f} ms ({layout}); query_batch({len(q)}) "
+        f"{qb_ms:.3f} ms through adc_scan, bit-equal to the in-memory "
+        f"database on buckets; publish_label -> resolve_label -> "
+        f"load_labeled: the same root and answers")
+
+
+def zero_query_raises(ft, name: str, call) -> None:
+    """``call`` (a zero query under cosine) raises ``InvalidArgs`` with
+    the JAX package's message."""
+    try:
+        call()
+    except ft.InvalidArgs as e:
+        require(str(e) == ZERO_QUERY, f"{name}: {e}")
+        return
+    raise AssertionError(f"{name} answered a zero cosine query")
+
+
+def cosine_leg(torch, ft, sift: dict, seed: int, work: Path,
+               total: dict) -> None:
+    """The cosine build on phase 3's (non-unit) rows: recall on both
+    layouts against exact L2 ground truth over the normalized corpus, 64
+    queries of each against the CPU path, the flat tier, the zero query
+    on every surface, and the stored round trip."""
+    from flechasdb_tpu_torch.host import normalize_rows
+    from flechasdb_tpu_torch.ops.exact import exact_topk
+    x, q = sift["x"], sift["q"]
+    db, build_ms, launches = counted(
+        torch, lambda: metric_builder(ft, x, seed, "cosine").build())
+    add_launches(total, launches)
+    needs(launches, SIFT_BUILD, "the cosine build")
+    one_sum_pass_a_round(launches, "the cosine build")
+    norms = np.linalg.norm(x, axis=1)
+    xn, qn = normalize_rows(x), normalize_rows(q, "query")
+    gt = exact_topk(torch.as_tensor(qn, device="cuda"),
+                    torch.as_tensor(xn, device="cuda"),
+                    k=K_TOP)[1].cpu().numpy()
+    log(f"cosine build (with_metric('cosine'), rows of norm "
+        f"{norms.min():.3f} to {norms.max():.3f}): {build_ms / 1e3:.3f} s, "
+        f"launches {launches}")
+    row_of = {vid: i for i, vid in enumerate(db.vector_ids)}
+    kw = dict(k=K_TOP, nprobe=SIFT_NPROBE)
+    qc = q[:N_CHECK]
+    for layout in ("bucketed", "masked"):
+        served = database_on(ft, db, layout)
+        (adc, rr), ms, launches = counted(torch, lambda: (
+            served.query_batch(q, **kw),
+            served.query_batch(q, rerank=RERANK, **kw)))
+        add_launches(total, launches)
+        if layout == "bucketed":
+            needs(launches, ("adc_scan",), "the cosine batches on buckets")
+        t0 = time.perf_counter()
+        ref = database_on(ft, db, layout, device="cpu")
+        swapped = 0
+        for depth, got in ((None, adc), (RERANK, rr)):
+            want = ref.query_batch(qc, rerank=depth, **kw)
+            for b in range(N_CHECK):
+                swapped += same_results(got[b], want[b], f"cosine {layout} "
+                                        f"rerank={depth} [{b}]")
+        log(f"cosine Database.query_batch({SIFT_NQ}) on the {layout} layout, "
+            f"without and with rerank={RERANK}: {ms:.3f} ms; recall@10 "
+            f"{recall_at(host_arrays(adc, row_of, K_TOP)[1], gt):.4f}, after"
+            f" rerank {recall_at(host_arrays(rr, row_of, K_TOP)[1], gt):.4f}"
+            f"; {N_CHECK} equal to the CPU path ({swapped} tie swaps; "
+            f"{time.perf_counter() - t0:.3f} s)")
+
+    def flat_batch():
+        flat = ft.FlatDatabase(x, vector_ids=db.vector_ids, metric="cosine",
+                               device="cuda")
+        return flat, flat.query_batch(q, K_TOP)
+    (flat, res), flat_ms, launches = counted(torch, flat_batch)
+    require(not any(launches.values()), f"the flat tier launched {launches}")
+    swapped = flat_against_truth(flat_rows(res), gt, xn, qn, "cosine flat")
+    log(f"cosine FlatDatabase on the card: build and query_batch("
+        f"{SIFT_NQ}) {flat_ms:.3f} ms, equal to the exact ground truth "
+        f"({swapped} tie swaps)")
+
+    fs = ft.LocalFileSystem(work / "cosine")
+    root, save_ms = timed(lambda: ft.save_database(db, fs))
+    sdb = ft.load_database(fs, f"{root}.binpb", device="cuda")
+    require(sdb.metric == "cosine", f"the cosine root's metric is "
+            f"{sdb.metric!r}")
+    cold, _, launches = counted(torch, lambda: [
+        sdb.query(q[i], **kw) for i in range(N_SINGLE)])
+    require(not any(launches.values()), f"the cold queries launched "
+            f"{launches}")
+    swapped = sum(same_results(got, db.query(q[i], **kw),
+                               f"cosine cold query[{i}]")
+                  for i, got in enumerate(cold))
+    zero = np.zeros(SIFT_M, np.float32)
+    surfaces = [
+        ("Database.query", lambda: db.query(zero, **kw)),
+        ("Database.query_batch", lambda: db.query_batch(zero[None], **kw)),
+        ("FlatDatabase.query", lambda: flat.query(zero, K_TOP)),
+        ("StoredDatabase.query (cold)", lambda: sdb.query(zero, **kw))]
+    for name, call in surfaces:
+        zero_query_raises(ft, name, call)
+    _, preload_ms = timed(sdb.preload)
+    surfaces.append(("StoredDatabase.query_batch (preloaded)",
+                     lambda: sdb.query_batch(zero[None], **kw)))
+    zero_query_raises(ft, *surfaces[-1])
+    got = sdb.query_batch(q, **kw)
+    want = db.query_batch(q, **kw)
+    exact = 0
+    for b in range(len(q)):
+        swapped += same_results(got[b], want[b], f"cosine stored [{b}]")
+        exact += same_ids(got[b], want[b])
+    log(f"cosine stored: save_database {save_ms:.3f} ms, root metric "
+        f"{sdb.metric!r}; {N_SINGLE} cold queries equal to the in-memory "
+        f"database; preload {preload_ms:.3f} ms ({sdb._dev[0].layout}), "
+        f"query_batch({len(q)}) equal to the in-memory batch ({exact} of "
+        f"{len(q)} bit-equal, {swapped} tie swaps); a zero query raises "
+        f"InvalidArgs({ZERO_QUERY!r}) on {len(surfaces)} surfaces: "
+        + ", ".join(name for name, _ in surfaces))
+
+
+def metrics_run(torch, seed: int, sift: dict, work: Path):
+    """Phase 12: ``dot`` and ``cosine`` at the SIFT shape, on phase 3's
+    data and state. Each leg's launches are counted on their own; their
+    sum and K-A's case at the MIPS buckets are returned."""
+    import flechasdb_tpu_torch as ft
+    t0 = time.perf_counter()
+    total = {}
+    sift["row_of"] = {vid: i for i, vid in enumerate(sift["db"].vector_ids)}
+    mips = mips_leg(torch, ft, sift, seed, total)
+    t1 = time.perf_counter()
+    mips_stored(torch, ft, mips, sift, work, total)
+    t2 = time.perf_counter()
+    cosine_leg(torch, ft, sift, seed, work, total)
+    log(f"launches over phase 12: {total}")
+    log(f"phase 12 parts: MIPS {t1 - t0:.3f} s, MIPS stored {t2 - t1:.3f} "
+        f"s, cosine {time.perf_counter() - t2:.3f} s ({CARD})")
+    return total, scan_at_main_path(torch, mips["index"], sift["q"],
+                                    SIFT_NPROBE, "the MIPS path's dot",
+                                    metric="dot")
+
+
+# --- phase 13: the GIST1M shape -----------------------------------------------
+
+#: The kernels a GIST build launches: K-B for the coarse fit (M=960), K-C
+#: for the PQ fit (m=16), or their fast variants under ``with_fast_math``.
+GIST_BUILD = {False: ("lloyd_round", "lloyd_grouped"),
+              True: ("lloyd_round_fast", "lloyd_grouped_fast")}
+
+
+def gist_builder(ft, xh, seed: int, fast: bool = False):
+    """``sweep.py``'s GIST build (P=1024, D=60, C=256) over the host rows,
+    without residues (the rerank reads the corpus on the card)."""
+    b = (ft.DatabaseBuilder(xh, device="cuda").with_partitions(GIST_P)
+         .with_divisions(GIST_D).with_clusters(C).with_seed(seed)
+         .with_residues(False))
+    return b.with_fast_math() if fast else b
+
+
+def gist_launches(launches: dict, fast: bool, what: str) -> None:
+    """A GIST build launched its two kernels (and not the other
+    numerics'), with one cluster-sum pass a round."""
+    needs(launches, GIST_BUILD[fast], what)
+    require(not any(launches[k] for k in GIST_BUILD[not fast])
+            and launches["adc_scan"] == 0, f"{what} launched {launches}")
+    one_sum_pass_a_round(launches, what)
+
+
+def gist_parts(timer) -> tuple[dict, tuple[int, int]]:
+    """A build's parts from its events (the card synchronized at each),
+    and its fits' rounds."""
+    rounds = deep_fit_rounds(timer.marks)
+    t = timer.at
+    parts = {
+        "UUIDs": t("FinishedIdAssignment") - t("StartingIdAssignment"),
+        "upload": t("StartingCentroidInitialization")
+        - t("StartingPartitioning"),
+        "coarse seeding": t("FinishedCentroidInitialization")
+        - t("StartingCentroidInitialization"),
+        "coarse rounds (K-B)": t("FinishedPartitioning")
+        - t("FinishedCentroidInitialization"),
+        "division": t("StartingCentroidInitialization", 1)
+        - t("FinishedPartitioning"),
+        "PQ seeding": t("FinishedCentroidInitialization", 1)
+        - t("StartingCentroidInitialization", 1),
+        "PQ rounds (K-C)": t("FinishedQuantization")
+        - t("FinishedCentroidInitialization", 1),
+        "copy-out": t("end") - t("FinishedQuantization", -1),
+    }
+    return parts, rounds
+
+
+def gist_builds(torch, ft, xh, seed: int, total: dict):
+    """The full build twice (bit-equal; the second's parts timed at its
+    events), then the fast build. Returns ``(full, fast)``."""
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_ms, launches = counted(
+        torch, lambda: gist_builder(ft, xh, seed).build())
+    add_launches(total, launches)
+    gist_launches(launches, False, "the first GIST build")
+    timer = PartTimer(torch)
+    second, _, again = counted(
+        torch, lambda: gist_builder(ft, xh, seed).build(timer))
+    timer.end()
+    add_launches(total, again)
+    gist_launches(again, False, "the second GIST build")
+    for name in ARRAY_FIELDS[:4]:
+        require(bit_equal(getattr(first, name), getattr(second, name)),
+                f"two same-seed GIST builds differ in {name}")
+    require(first.vector_ids == second.vector_ids,
+            "two same-seed GIST builds differ in their ids")
+    parts, (coarse_r, pq_r) = gist_parts(timer)
+    second_s = timer.at("end") - timer.at("start")
+    del second
+    log(f"GIST build ({GIST_N} x {GIST_M}, P={GIST_P}, D={GIST_D}, C={C}, "
+        f"no residues): first {first_ms / 1e3:.3f} s, second (timed at its "
+        f"events) {second_s:.3f} s, the arrays and ids bit-equal; rounds: "
+        f"coarse {coarse_r}, PQ {pq_r}; launches {launches}, {again}; "
+        f"parts: " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
+    pops = len(np.unique(first.partition_indices))
+    counts = np.bincount(first.partition_indices, minlength=GIST_P)
+    log(f"GIST build: partitions populated {pops}, largest {counts.max()}, "
+        f"smallest {counts.min()}; peak device memory of the builds "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+
+    timer = PartTimer(torch)
+    fast, fast_ms, launches = counted(
+        torch, lambda: gist_builder(ft, xh, seed, fast=True).build(timer))
+    timer.end()
+    add_launches(total, launches)
+    gist_launches(launches, True, "the fast GIST build")
+    f_parts, f_rounds = gist_parts(timer)
+    log(f"GIST fast build (with_fast_math()): {fast_ms / 1e3:.3f} s (the "
+        f"full build's {second_s:.3f} s); rounds: coarse {f_rounds[0]}, PQ "
+        f"{f_rounds[1]}; launches {launches}; parts: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in f_parts.items()))
+    return first, fast
+
+
+def gist_arrays(db):
+    return (db.partition_centroids, db.codebooks, db.codes.astype(np.int32),
+            db.partition_indices)
+
+
+def gist_serve(torch, x, xh, qh, gt: np.ndarray, full, fast, total: dict):
+    """Buckets at packed D=60 (15 words a slot) through K-A at
+    GIST_NPROBES and the rerank row, the fast build's recall and inertia
+    against the full build's, 64 queries against the CPU path on the
+    same buckets, ``Database.query_batch`` on the policy's layout.
+    Returns the bucketed index."""
+    from flechasdb_tpu_torch.ops.bucketed import Buckets, query_bucketed
+    from flechasdb_tpu_torch.serving import DeviceIndex, _rerank_exact
+    index, index_ms = timed(lambda: DeviceIndex(
+        *gist_arrays(full), layout="bucketed", device="cuda"))
+    bk = index.buckets
+    words, l_pad = bk.codes.shape[1], bk.codes.shape[2]
+    require(words == 15, f"the GIST buckets hold {words} words a slot")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve():
+        out = {}
+        for nprobe in GIST_NPROBES:
+            def fn(nprobe=nprobe):
+                return index.query(qh, K_TOP, nprobe)
+            out[nprobe] = fn(), [timed(fn)[1] for _ in range(3)]
+
+        def rr():
+            return index.query_rerank(qh, x, K_TOP, GIST_NPROBE, RERANK)
+        out["rerank"] = rr(), [timed(rr)[1] for _ in range(3)]
+        return out
+    rows, _, served = counted(torch, serve)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    add_launches(total, served)
+    needs(served, ("adc_scan",), "the GIST bucketed batches")
+    pidx = full.partition_indices
+    recalls = {}
+    for key, (res, ms) in rows.items():
+        recalls[key] = recall_at(res[1], gt)
+        nprobe = GIST_NPROBE if key == "rerank" else key
+        log(f"GIST DeviceIndex(layout='bucketed') nprobe={nprobe}"
+            f"{f' rerank={RERANK}' if key == 'rerank' else ''}: recall@10 "
+            f"{recalls[key]:.4f}, coarse@10 "
+            f"{coarse_at(pidx, gt, rows[nprobe][0][2]):.4f}, batch of "
+            f"{len(qh)} {statistics.median(ms):.3f} ms (median of 3: "
+            f"{', '.join(f'{v:.3f}' for v in ms)})")
+    log(f"GIST buckets: DeviceIndex {index_ms:.3f} ms, l_pad {l_pad}, "
+        f"packed words {words}; peak device memory of the batches above "
+        f"their inputs {peak:.3f} GiB")
+    r_adc = recalls[GIST_NPROBE]
+    require(recalls["rerank"] >= 0.9 and recalls["rerank"] >= r_adc,
+            f"GIST rerank recall {recalls['rerank']} below 0.9 or the ADC "
+            f"recall {r_adc}")
+
+    fast_index = DeviceIndex(*gist_arrays(fast), layout="bucketed",
+                             device="cuda")
+    res, _, launches = counted(torch, lambda: fast_index.query(
+        qh, K_TOP, GIST_NPROBE))
+    add_launches(total, launches)
+    needs(launches, ("adc_scan",), "the fast GIST batch")
+    r_fast = recall_at(res[1], gt)
+    def inertia(db):            # the databases keep no residues
+        cents = torch.as_tensor(db.partition_centroids, device="cuda")
+        pidx = torch.as_tensor(db.partition_indices, device="cuda").long()
+        return pq_error(torch, db, x - cents[pidx])
+    e_full, e_fast = inertia(full), inertia(fast)
+    del fast_index
+    log(f"GIST fast build at nprobe={GIST_NPROBE}: recall@10 {r_fast:.4f} "
+        f"(the full build's {r_adc:.4f}); PQ inertia a row {e_fast:.4f} "
+        f"(the full build's {e_full:.4f}, ratio {e_fast / e_full:.4f})")
+    require(abs(r_fast - r_adc) <= 0.02, f"GIST fast recall {r_fast} not "
+            f"within 0.02 of {r_adc}")
+    require(abs(e_fast - e_full) <= 0.05 * e_full, f"GIST fast PQ inertia "
+            f"{e_fast} not within 5% of {e_full}")
+
+    t0 = time.perf_counter()
+    cpu_bk = Buckets(*(a.cpu() for a in bk))
+    xc = torch.from_numpy(xh)
+    swapped = 0
+    for s in range(0, N_CHECK, 16):
+        qc = torch.from_numpy(qh[s:s + 16])
+        want = query_bucketed(qc, index.centroids.cpu(),
+                              index.codebooks.cpu(), cpu_bk, k=RERANK,
+                              nprobe=GIST_NPROBE)
+        adc = rows[GIST_NPROBE][0]
+        swapped += same_arrays((adc[0][s:s + 16], adc[1][s:s + 16]),
+                               (want[0][:, :K_TOP].numpy(),
+                                want[1][:, :K_TOP].numpy()),
+                               f"GIST buckets vs CPU [{s}:]")
+        want_rr = _rerank_exact(qc, want[1], torch.isfinite(want[0]), xc,
+                                k=K_TOP)
+        rr = rows["rerank"][0]
+        swapped += same_arrays((rr[0][s:s + 16], rr[1][s:s + 16]),
+                               tuple(t.numpy() for t in want_rr),
+                               f"GIST rerank vs CPU [{s}:]")
+    log(f"GIST: {N_CHECK} queries at nprobe={GIST_NPROBE}, with and without "
+        f"rerank {RERANK}, equal to the CPU plain path on the same buckets "
+        f"({swapped} tie swaps; {time.perf_counter() - t0:.3f} s)")
+
+    kw = dict(k=K_TOP, nprobe=GIST_NPROBE)
+    _, first_ms = timed(lambda: full.query_batch(qh[:1], **kw))
+    res, qb_ms, launches = counted(torch, lambda: full.query_batch(qh, **kw))
+    add_launches(total, launches)
+    layout = full._device_state().layout
+    row_of = {vid: i for i, vid in enumerate(full.vector_ids)}
+    mine = host_arrays(res, row_of, K_TOP)
+    adc = rows[GIST_NPROBE][0]
+    swapped = same_arrays((mine[0][:N_CHECK], mine[1][:N_CHECK]),
+                          (adc[0][:N_CHECK], adc[1][:N_CHECK]),
+                          "GIST Database.query_batch vs buckets")
+    log(f"GIST Database.query_batch({len(qh)}) on the {layout} layout (the "
+        f"policy's): first call {first_ms:.3f} ms (builds its device index),"
+        f" {qb_ms:.3f} ms, launches {launches}; recall@10 "
+        f"{recall_at(mine[1], gt):.4f}; {N_CHECK} equal to the bucketed "
+        f"index ({swapped} tie swaps)")
+    return index
+
+
+def gist_run(torch, seed: int):
+    """Phase 13: the GIST1M shape on the card, nothing cut. Returns
+    ``(launches, K-A case)``."""
+    import flechasdb_tpu_torch as ft
+    from flechasdb_tpu_torch import synth
+    from flechasdb_tpu_torch.ops.exact import exact_topk
+    gen = torch.Generator("cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, q = synth.gmm_pair_device(gen, GIST_N, GIST_NQ, GIST_M,
+                                 n_clusters=256, intrinsic=32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    xh, qh = x.cpu().numpy(), q.cpu().numpy()
+    log(f"GIST data {GIST_N} x {GIST_M} + {GIST_NQ} queries "
+        f"(synth.gmm_pair_device, 256 components, intrinsic 32, seed "
+        f"{seed}): {t1 - t0:.3f} s, to the host {time.perf_counter() - t1:.3f}"
+        f" s ({xh.nbytes} bytes); peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB over "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.3f} GiB held")
+    (_, gt), gt_ms, _ = counted(torch, lambda: exact_topk(q, x, k=K_TOP))
+    gt = gt.cpu().numpy().astype(np.int64)
+    log(f"GIST ground truth (exact_topk at M={GIST_M}, {GIST_NQ} queries): "
+        f"{gt_ms:.3f} ms")
+    total = {}
+    t0 = time.perf_counter()
+    full, fast = gist_builds(torch, ft, xh, seed, total)
+    t1 = time.perf_counter()
+    index = gist_serve(torch, x, xh, qh, gt, full, fast, total)
+    log(f"launches over phase 13: {total}")
+    log(f"phase 13 parts: builds {t1 - t0:.3f} s, serving "
+        f"{time.perf_counter() - t1:.3f} s ({CARD})")
+    case = scan_at_main_path(torch, index, qh[:N_CHECK], GIST_NPROBE,
+                             "the GIST path's")
+    del x, q, full, fast, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, case
+
+
 def row(name, route, source, replaces, launches, err, ms, plain_ms, bms,
         by, ms_by="cuda events", **extra):
     return {"name": name, "route": route, "source": source,
@@ -3378,6 +4128,16 @@ def deep_shape(case) -> dict:
     return {"shape": sums["name"] + " " + sums["shape"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "pass_ms": sums["ms"], "pass_route": sums["route"]}
+
+
+def gist_shape(case) -> dict:
+    """A Lloyd row's time at its GIST shape of phase 1 (as
+    :func:`deep_shape`) and, where it was timed, its assignment alone
+    beside that bound."""
+    out = deep_shape(case)
+    if case[6]:
+        out.update(assign_fields(case[6]))
+    return out
 
 
 def sums_row(launches, err, case):
@@ -3422,7 +4182,8 @@ def main() -> None:
                parity_scan(torch, gen, 8, 256, True),
                parity_scan(torch, gen, 12, 200, False),
                parity_scan(torch, gen, 256, 256, True, l=1152),
-               parity_scan(torch, gen, 64, 1024, False, l=1152)]
+               parity_scan(torch, gen, 64, 1024, False, l=1152),
+               parity_scan(torch, gen, GIST_D, C, True)]
     lookup = parity_lookup(torch, gen)
     b_cases = [parity_lloyd(torch, gen, 1, N, P, M),
                parity_lloyd(torch, gen, D, N, C, M // D, ordered=True),
@@ -3504,6 +4265,26 @@ def main() -> None:
                    for fast in (False, True)]
     b_cases += deep_cases[0::2]
     bf_cases += deep_cases[1::2]
+    # The GIST path's shapes (phase 13): K-B and K-B fast at the coarse
+    # fit (B=1, N=1M, K=1024, M=960), K-C and K-C fast at the PQ fit (B=60,
+    # N=1M, K=256, m=16: the last of 8 groups holds 4 pad divisions), the
+    # pass bit-equal to its order model at each.
+    gist_pq = (GIST_D, GIST_N, C, GIST_M // GIST_D)
+    log(f"GIST shape B=1 N={GIST_N} K={GIST_P} M={GIST_M}: "
+        f"{lloyd.sum_tiling(1, GIST_N, GIST_P, GIST_M, 1)}; "
+        f"{lloyd.fast_tiling(1, GIST_N, GIST_P, GIST_M)}")
+    log(f"GIST shape B={GIST_D} N={GIST_N} K={C} M={GIST_M // GIST_D}: "
+        f"{lloyd.sum_tiling(*gist_pq, lloyd.GROUP_WIDTH // gist_pq[3])}; "
+        f"{lloyd.grouped_fast_tiling(*gist_pq)}")
+    gist_cases = [parity_lloyd(torch, gen, 1, GIST_N, GIST_P, GIST_M,
+                               fast=fast, ordered=True)
+                  for fast in (False, True)]
+    gist_cases += [parity_lloyd(torch, gen, *gist_pq, grouped=True,
+                                fast=fast, ordered=True)
+                   for fast in (False, True)]
+    for cases, case in zip((b_cases, bf_cases, c_cases, cf_cases),
+                           gist_cases):
+        cases.append(case)
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
@@ -3538,6 +4319,11 @@ def main() -> None:
         mesh_launches = sharded_run(torch, args.seed, head, sift, work)
         log(f"phase 11 (the sharded paths): "
             f"{time.perf_counter() - t0:.3f} s")
+        # Phase 12 runs here too, on phase 3's data and state.
+        t0 = time.perf_counter()
+        metric_launches, a_mips = metrics_run(torch, args.seed, sift, work)
+        log(f"phase 12 (the dot and cosine metrics): "
+            f"{time.perf_counter() - t0:.3f} s")
     del head, sift
     gc.collect()
     torch.cuda.empty_cache()
@@ -3545,7 +4331,11 @@ def main() -> None:
     deep_launches, a_deep, deep_final = deep_run(torch, args.seed)
     log(f"phase 9 (the Deep10M shape): {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64, a_deep]
+    gist_launches_, a_gist = gist_run(torch, args.seed)
+    log(f"phase 13 (the GIST1M shape): {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    a_cases += [a_main, a_sift, a_upd, a_stored, a_opq, a_cli, a_f64, a_deep,
+                a_mips, a_gist]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
     lloyd_cases = b_cases + c_cases + bf_cases + cf_cases
@@ -3572,6 +4362,7 @@ def main() -> None:
     launches = {k: slice_launches[k] + sift_launches[k] + upd_launches[k]
                 + stored_launches[k] + fo_launches[k] + cli_launches[k]
                 + f64_launches[k] + deep_launches[k] + mesh_launches[k]
+                + metric_launches.get(k, 0) + gist_launches_.get(k, 0)
                 for k in slice_launches}
     a_err = max(case["err"] for case in a_cases)
     kernels = [
@@ -3582,17 +4373,21 @@ def main() -> None:
         row("lloyd_round", "cuda", SRC_B, REPLACES["round"],
             launches["lloyd_round"], max(e[0] for e in b_cases),
             *b_cases[1][1:5], deep10m=[deep_shape(e) for e in
-                                       deep_cases[0:4:2]] + [deep_final]),
+                                       deep_cases[0:4:2]] + [deep_final],
+            gist=gist_shape(gist_cases[0])),
         row("lloyd_grouped", "cuda", SRC_C, REPLACES["grouped"],
             launches["lloyd_grouped"], max(e[0] for e in c_cases),
-            *c_cases[0][1:5], **assign_fields(c_cases[0][6])),
+            *c_cases[0][1:5], **assign_fields(c_cases[0][6]),
+            gist=gist_shape(gist_cases[2])),
         row("lloyd_round_fast", "cuda", SRC_BF, REPLACES["round_fast"],
             launches["lloyd_round_fast"], max(e[0] for e in bf_cases),
             *bf_cases[1][1:5], **assign_fields(bf_cases[1][6]),
-            deep10m=[deep_shape(e) for e in deep_cases[1:4:2]]),
+            deep10m=[deep_shape(e) for e in deep_cases[1:4:2]],
+            gist=gist_shape(gist_cases[1])),
         row("lloyd_grouped_fast", "cuda", SRC_CF, REPLACES["grouped_fast"],
             launches["lloyd_grouped_fast"], max(e[0] for e in cf_cases),
-            *cf_cases[0][1:5], **assign_fields(cf_cases[0][6])),
+            *cf_cases[0][1:5], **assign_fields(cf_cases[0][6]),
+            gist=gist_shape(gist_cases[3])),
         sums_row(launches["cluster_sums"],
                  max([e[0] for e in lloyd_cases] + [sort_err]),
                  b_cases[1][5]),

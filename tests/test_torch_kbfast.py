@@ -32,6 +32,7 @@ FAST_SHAPES = {
     "headline_coarse": (1, 100_000, 100, 1536),
     "headline_pq": (12, 100_000, 256, 128),
     "sift_coarse": (1, 1_000_000, 1024, 128),
+    "gist_coarse": (1, 1_000_000, 1024, 960),
     "k1024": (1, 65_536, 1024, 128),
     "cli_coarse": (1, 5000, 10, 1024),
     "cli_pq": (8, 5000, 25, 128),
@@ -117,6 +118,7 @@ def test_fast_tiling_at_the_chip_shapes():
     want = {"headline_coarse": ("chunked", 128, 1536, 128),
             "headline_pq": ("resident", 256, 128, 128),
             "sift_coarse": ("resident", 1024, 128, 128),
+            "gist_coarse": ("chunked", 1024, 960, 128),
             "k1024": ("resident", 1024, 128, 128),
             "edge_m256": ("chunked", 256, 256, 128),
             "edge_m264": ("chunked", 384, 320, 128),

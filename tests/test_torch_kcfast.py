@@ -35,6 +35,7 @@ SMEM_MAX = 232_448
 GROUPED_SHAPES = {
     "sift_pq": (8, 1_000_000, 256, 16),
     "gist_pq": (60, 100_000, 256, 16),
+    "gist_pq_1m": (60, 1_000_000, 256, 16),
     "m8": (16, 100_000, 256, 8),
     "m32": (4, 100_000, 256, 32),
     "m64_k300": (2, 100_000, 300, 64),
@@ -188,6 +189,7 @@ def test_grouped_fast_tiling_fits_the_block_and_the_kernel(shape):
 
 def test_grouped_fast_tiling_at_the_chip_shapes():
     want = {"sift_pq": (1, 4, 2, 256, 5209), "gist_pq": (8, 4, 2, 256, 4168),
+            "gist_pq_1m": (8, 4, 2, 256, 41672),
             "m8": (1, 4, 4, 256, 521), "m32": (1, 2, 2, 256, 521),
             "m64_k300": (1, 2, 1, 320, 521),
             "dup_k1024": (1, 4, 2, 1024, 521)}

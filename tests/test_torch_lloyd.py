@@ -352,7 +352,8 @@ def test_fit_events_follow_the_jax_grammar():
                                          (12, 3000, 256, 128, True),
                                          (2, 129, 1, 5, False),
                                          (1, 1000, 16, 24, False),
-                                         (2, 4133, 300, 128, False)])
+                                         (2, 4133, 300, 128, False),
+                                         (1, 3000, 1024, 960, False)])
 def test_kernel_matches_plain_on_card(cuda, b, n, k, m, dup):
     rng = np.random.default_rng(n + k)
     x = rng.standard_normal((b, n, m)).astype(np.float32)

@@ -248,7 +248,8 @@ def test_adc_lookup_matches_plain_on_card(cuda, g, d, c, l, pack):
     _assert_close(got.cpu().numpy(), want.cpu().numpy())
 
 
-# (d, c, pack, l, g, lens): the paths' shapes; tables over the 227 KB of
+# (d, c, pack, l, g, lens): the paths' shapes (GIST's packed D=60, 15
+# words a slot, last); tables over the 227 KB of
 # shared memory a block may hold (D=256, C=256 packed; D=64, C=1024
 # unpacked); tables just under and just over one 32 KB chunk of the table
 # (28 and 36 packed divisions at C=256, 7 and 9 unpacked at C=1024); L not
@@ -265,7 +266,7 @@ _CARD = [(12, 256, True, 2048, 37, "mixed"), (8, 256, True, 3072, 37, "mixed"),
          (12, 256, True, 1150, 37, "mixed"), (5, 200, False, 383, 37, "mixed"),
          (5, 25, True, 384, 37, "mixed"), (3, 301, False, 256, 37, "mixed"),
          (12, 256, True, 1152, 1, "none"), (64, 1024, False, 1001, 1, "none"),
-         (8, 256, True, 2048, 37, "zero")]
+         (8, 256, True, 2048, 37, "zero"), (60, 256, True, 2048, 37, "mixed")]
 
 
 @pytest.mark.cuda
