@@ -38,6 +38,7 @@ from .host import as_vector_set, check_metric, check_range_args, \
     normalize_rows
 from .ops import kmeans
 from .partitions import partition
+from .utils.profiling import annotate, annotated
 
 
 def _make_uuids(n: int, rng: np.random.Generator) -> List[_uuid.UUID]:
@@ -510,6 +511,7 @@ class Database:
         events(ev.FinishedResultSelection())
         return results
 
+    @annotated("fdb.query_batch")
     def query_batch(self, vs, k: int, nprobe: int,
                     rerank: Optional[int] = None,
                     where=None) -> List[List[QueryResult]]:
@@ -538,7 +540,9 @@ class Database:
             dists, rows = self._device_state().query_rerank(
                 vs, self._device_originals(), k=k, nprobe=nprobe,
                 rerank=rerank, row_mask=mask)
-        return [self._to_results(dists[b], rows[b]) for b in range(len(vs))]
+        with annotate("fdb.results"):
+            return [self._to_results(dists[b], rows[b])
+                    for b in range(len(vs))]
 
     def query_range(self, v, radius: float, nprobe: int,
                     limit: Optional[int] = None,

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .distance import full_f32, sqdist
 
 
@@ -95,24 +96,28 @@ def masked_scan_keys(q: torch.Tensor, centroids: torch.Tensor,
     ``rotation``: the OPQ rotation the codes were made in."""
     b, _ = q.shape
     d, c, sub = codebooks.shape
-    if metric == "dot":
-        coarse = coarse_scores(q, centroids, metric)
-        qc = torch.einsum("bds,dcs->bdc",
-                          _rotated(q, rotation).reshape(b, d, sub), codebooks)
-        flat, base = qc.reshape(b, d * c), 0
-    else:
-        coarse, tables = adc_tables(q, centroids, codebooks, rotation)
-        flat, base = tables.reshape(b, -1), pidx.long() * (d * c)
+    with annotate("fdb.tables"):
+        if metric == "dot":
+            coarse = coarse_scores(q, centroids, metric)
+            qc = torch.einsum("bds,dcs->bdc",
+                              _rotated(q, rotation).reshape(b, d, sub),
+                              codebooks)
+            flat = qc.reshape(b, d * c)
+        else:
+            coarse, tables = adc_tables(q, centroids, codebooks, rotation)
+            flat = tables.reshape(b, -1)
 
     def column(j: int) -> torch.Tensor:                    # [B, N]
         return flat[:, codes[:, j].long().add_(base).add_(j * c)]
 
-    vals = column(0)
-    for j in range(1, d):
-        vals += column(j)
-    if metric == "dot":
-        return coarse[:, pidx.long()].sub_(vals), coarse
-    return vals, coarse
+    with annotate("fdb.scan"):
+        base = 0 if metric == "dot" else pidx.long() * (d * c)
+        vals = column(0)
+        for j in range(1, d):
+            vals += column(j)
+        if metric == "dot":
+            return coarse[:, pidx.long()].sub_(vals), coarse
+        return vals, coarse
 
 
 def smallest_k(keys: torch.Tensor, k: int,
@@ -147,12 +152,13 @@ def _probed_keys(q: torch.Tensor, centroids: torch.Tensor,
     in the partitions not probed and where ``row_mask`` is False."""
     vdist, coarse = masked_scan_keys(q, centroids, codebooks, codes, pidx,
                                      metric, rotation)
-    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-    keep = torch.zeros_like(coarse, dtype=torch.bool).scatter_(
-        1, probed, True)[:, pidx.long()]
-    if row_mask is not None:
-        keep &= row_mask[None, :]
-    return vdist.masked_fill_(~keep, float("inf")), probed
+    with annotate("fdb.probe"):
+        probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+        keep = torch.zeros_like(coarse, dtype=torch.bool).scatter_(
+            1, probed, True)[:, pidx.long()]
+        if row_mask is not None:
+            keep &= row_mask[None, :]
+        return vdist.masked_fill_(~keep, float("inf")), probed
 
 
 def query_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
@@ -170,12 +176,14 @@ def query_masked_scan(q: torch.Tensor, centroids: torch.Tensor,
     n = codes.shape[0]
     vdist, probed = _probed_keys(q, centroids, codebooks, codes, pidx,
                                  row_mask, nprobe, metric, rotation)
-    kk = min(k, n)
-    dist, rows = smallest_k(vdist, kk)
-    if kk < k:
-        dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
-        rows = torch.nn.functional.pad(rows, (0, k - kk))
-    return dist, rows.to(torch.int32), probed.to(torch.int32)
+    with annotate("fdb.topk"):
+        kk = min(k, n)
+        dist, rows = smallest_k(vdist, kk)
+        if kk < k:
+            dist = torch.nn.functional.pad(dist, (0, k - kk),
+                                           value=float("inf"))
+            rows = torch.nn.functional.pad(rows, (0, k - kk))
+        return dist, rows.to(torch.int32), probed.to(torch.int32)
 
 
 def range_masked_scan(q: torch.Tensor, centroids: torch.Tensor,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..host import bucket_len
+from ..utils.profiling import annotate, count
 from .adc import _dot_tables, _rotated, coarse_scores
 from .distance import full_f32
 from .scan import adc_lookup_indexed
@@ -112,16 +113,21 @@ def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
     d, c, _ = codebooks.shape
     l = buckets.codes.shape[2]
 
-    coarse = coarse_scores(q, centroids, metric)            # [B, P]
-    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-    tables = probed_tables(q, centroids, codebooks, probed, metric, coarse,
-                           rotation)
-    lens = buckets.lengths[probed]                          # [B, nprobe]
-    vdist = adc_lookup_indexed(
-        buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
-        probed.reshape(-1).to(torch.int32).contiguous(),
-        lens.reshape(-1).contiguous(), d=d)                 # [B·nprobe, L]
-    return vdist.reshape(b, nprobe, l), probed
+    with annotate("fdb.probe"):
+        coarse = coarse_scores(q, centroids, metric)        # [B, P]
+        probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+        lens = buckets.lengths[probed]                      # [B, nprobe]
+        count("bucketed.slots", b * nprobe * l)
+        count("bucketed.real_slots", lens)
+    with annotate("fdb.tables"):
+        tables = probed_tables(q, centroids, codebooks, probed, metric,
+                               coarse, rotation)
+    with annotate("fdb.scan"):
+        vdist = adc_lookup_indexed(
+            buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
+            probed.reshape(-1).to(torch.int32).contiguous(),
+            lens.reshape(-1).contiguous(), d=d)             # [B·nprobe, L]
+        return vdist.reshape(b, nprobe, l), probed
 
 
 def _kept(rows: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
@@ -150,18 +156,21 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
                                 metric, rotation)
     if row_mask is not None:                  # one gather and select
-        vdist = vdist.masked_fill(~_kept(buckets.rows[probed], row_mask),
-                                  float("inf"))
+        with annotate("fdb.scan"):
+            vdist = vdist.masked_fill(
+                ~_kept(buckets.rows[probed], row_mask), float("inf"))
 
-    kk = min(k, nprobe * l)
-    best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
-    dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
-    win_part = probed.gather(1, flat_idx // l)
-    rows = buckets.rows.reshape(-1)[win_part * l + flat_idx % l]
-    if kk < k:
-        dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
-        rows = torch.nn.functional.pad(rows, (0, k - kk))
-    return dist, rows.to(torch.int32), probed.to(torch.int32)
+    with annotate("fdb.topk"):
+        kk = min(k, nprobe * l)
+        best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
+        dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
+        win_part = probed.gather(1, flat_idx // l)
+        rows = buckets.rows.reshape(-1)[win_part * l + flat_idx % l]
+        if kk < k:
+            dist = torch.nn.functional.pad(dist, (0, k - kk),
+                                           value=float("inf"))
+            rows = torch.nn.functional.pad(rows, (0, k - kk))
+        return dist, rows.to(torch.int32), probed.to(torch.int32)
 
 
 def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,

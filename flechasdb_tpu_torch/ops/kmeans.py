@@ -38,6 +38,7 @@ import torch
 
 from .. import events as ev
 from ..events import EventHandler, _noop
+from ..utils.profiling import annotate, annotated
 from .distance import assign_chunked, sqdist_one
 from .lloyd import (GROUP_WIDTH, lloyd_round, lloyd_round_grouped,
                     regroup_divisions)
@@ -185,6 +186,7 @@ def _round_fn(x: torch.Tensor, impl: str, fast: bool):
     return lambda c: lloyd_round(x, c, fast)
 
 
+@annotated("fdb.kmeans.fit")
 def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
         epsilon: float = DEFAULT_EPSILON, max_rounds: int = MAX_ROUNDS,
         handler: EventHandler = _noop, impl: str | None = None,
@@ -227,11 +229,13 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
                              device=dev)
         sub = fit(x[:, rows].contiguous(), k, generator, epsilon=epsilon,
                   max_rounds=max_rounds, handler=handler, impl=resolved)
-        idx = _round_fn(x, impl, fast)(sub.centroids)[0]
+        with annotate("fdb.kmeans.assign"):
+            idx = _round_fn(x, impl, fast)(sub.centroids)[0]
         return KMeansResult(sub.centroids, idx, sub.rounds, sub.gradient)
     handler(ev.StartingCentroidInitialization())
-    centroids, indices = _subsampled_init(x, k, generator,
-                                          need_indices=max_rounds == 0)
+    with annotate("fdb.kmeans.seeding"):
+        centroids, indices = _subsampled_init(x, k, generator,
+                                              need_indices=max_rounds == 0)
     handler(ev.FinishedCentroidInitialization())
     if max_rounds == 0:
         return KMeansResult(centroids, indices,
@@ -244,6 +248,7 @@ def fit(x: torch.Tensor, k: int, generator: torch.Generator, *,
                       max_rounds=max_rounds, handler=handler)
 
 
+@annotated("fdb.kmeans.lloyd")
 def lloyd_loop(centroids: torch.Tensor, indices: torch.Tensor, round_fn,
                assign_fn, *, epsilon: float, max_rounds: int,
                handler: EventHandler = _noop) -> KMeansResult:
@@ -268,9 +273,10 @@ def lloyd_loop(centroids: torch.Tensor, indices: torch.Tensor, round_fn,
         rounds += (~done).to(torch.int32)
         gradient = torch.where(done, gradient, grad)
         done = done | (grad < epsilon)
-        all_done = bool(done.all())
-        if handler is not _noop:
-            gh = gradient.cpu().numpy()
+        with annotate("fdb.lloyd.sync"):        # the host waits for the round
+            all_done = bool(done.all())
+            gh = gradient.cpu().numpy() if handler is not _noop else None
+        if gh is not None:
             handler(ev.StartingCentroidUpdate(r))
             handler(ev.FinishedCentroidUpdate(
                 r, gh if b > 1 else float(gh[0])))

@@ -30,6 +30,7 @@ import torch
 from ..ops.adc import coarse_scores
 from ..ops.bucketed import Buckets, _kept, probed_tables
 from ..ops.scan import adc_lookup_indexed
+from ..utils.profiling import annotate
 from .mesh import CorpusMesh, all_gather, merge_topk
 
 
@@ -66,19 +67,22 @@ def _owned_scan(q: torch.Tensor, centroids: torch.Tensor,
     b = q.shape[0]
     d, c, _ = codebooks.shape
     pl, _, l = local.codes.shape
-    coarse = coarse_scores(q, centroids, metric)             # [B, P]
-    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-    tables = probed_tables(q, centroids, codebooks, probed, metric, coarse,
-                           rotation)
-    lidx = probed - mesh.rank * pl
-    owned = (lidx >= 0) & (lidx < pl)
-    slot = torch.where(owned, lidx, 0)
-    lens = torch.where(owned, local.lengths[slot], 0)
-    vdist = adc_lookup_indexed(
-        local.codes, tables.reshape(b * nprobe, d * c).contiguous(),
-        slot.reshape(-1).to(torch.int32).contiguous(),
-        lens.reshape(-1).to(torch.int32).contiguous(), d=d)
-    return vdist.reshape(b, nprobe, l), slot, probed
+    with annotate("fdb.probe"):
+        coarse = coarse_scores(q, centroids, metric)         # [B, P]
+        probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+        lidx = probed - mesh.rank * pl
+        owned = (lidx >= 0) & (lidx < pl)
+        slot = torch.where(owned, lidx, 0)
+        lens = torch.where(owned, local.lengths[slot], 0)
+    with annotate("fdb.tables"):
+        tables = probed_tables(q, centroids, codebooks, probed, metric,
+                               coarse, rotation)
+    with annotate("fdb.scan"):
+        vdist = adc_lookup_indexed(
+            local.codes, tables.reshape(b * nprobe, d * c).contiguous(),
+            slot.reshape(-1).to(torch.int32).contiguous(),
+            lens.reshape(-1).to(torch.int32).contiguous(), d=d)
+        return vdist.reshape(b, nprobe, l), slot, probed
 
 
 def query_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,
@@ -99,18 +103,21 @@ def query_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,
     vdist, slot, probed = _owned_scan(q, centroids, codebooks, buckets,
                                       mesh, nprobe, metric, rotation)
     if row_mask is not None:
-        vdist = vdist.masked_fill(~_kept(buckets.rows[slot], row_mask),
-                                  float("inf"))
-    kk = min(k, nprobe * l)
-    best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
-    dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
-    win_slot = slot.gather(1, flat_idx // l)
-    rows = buckets.rows.reshape(-1)[win_slot * l + flat_idx % l]
-    if kk < k:
-        dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
-        rows = torch.nn.functional.pad(rows, (0, k - kk))
-    dist, rows = merge_topk(mesh, dist, rows, k)
-    return dist, rows, probed.to(torch.int32)
+        with annotate("fdb.scan"):
+            vdist = vdist.masked_fill(
+                ~_kept(buckets.rows[slot], row_mask), float("inf"))
+    with annotate("fdb.topk"):
+        kk = min(k, nprobe * l)
+        best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
+        dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
+        win_slot = slot.gather(1, flat_idx // l)
+        rows = buckets.rows.reshape(-1)[win_slot * l + flat_idx % l]
+        if kk < k:
+            dist = torch.nn.functional.pad(dist, (0, k - kk),
+                                           value=float("inf"))
+            rows = torch.nn.functional.pad(rows, (0, k - kk))
+        dist, rows = merge_topk(mesh, dist, rows, k)
+        return dist, rows, probed.to(torch.int32)
 
 
 def range_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,

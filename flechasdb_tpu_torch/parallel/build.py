@@ -38,6 +38,7 @@ from .. import events as ev
 from ..events import EventHandler, _noop
 from ..ops import kmeans
 from ..ops.distance import full_f32
+from ..utils.profiling import annotated
 from .kmeans import fit_sharded
 from .mesh import CorpusMesh, block_sizes, gather_blocks, gather_rows
 
@@ -75,6 +76,7 @@ def _pidx_dtype(p: int) -> torch.dtype:
     return torch.uint16 if p <= (1 << 16) else torch.int32
 
 
+@annotated("fdb.encode")
 @full_f32()
 def _encode_chunked(x: torch.Tensor, cents: torch.Tensor, idx: torch.Tensor,
                     codebooks: torch.Tensor, *,
@@ -119,6 +121,7 @@ def _all_residuals(x: torch.Tensor, cents: torch.Tensor,
     return x - cents[idx.long()]
 
 
+@annotated("fdb.build")
 def build_staged(x, p: int, d: int, c: int, seed: int,
                  events: Optional[EventHandler] = None, *,
                  pq_cap: int = PQ_TRAIN_CAP,
@@ -190,6 +193,7 @@ def _encode_sharded(x: torch.Tensor, cents: torch.Tensor, idx: torch.Tensor,
     return _encode_chunked(x, cents, idx, codebooks)
 
 
+@annotated("fdb.build")
 def build_sharded(x, p: int, d: int, c: int, seed: int, *,
                   mesh: CorpusMesh, pq_cap: int = PQ_TRAIN_CAP,
                   coarse_cap: int = COARSE_TRAIN_CAP,

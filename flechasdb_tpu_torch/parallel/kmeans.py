@@ -25,6 +25,7 @@ import torch
 
 from ..ops import kmeans
 from ..ops.kmeans import DEFAULT_EPSILON, MAX_ROUNDS, KMeansResult
+from ..utils.profiling import annotate, annotated
 from .mesh import CorpusMesh, block_sizes, gather_blocks, gather_rows, \
     sum_ranks
 
@@ -63,6 +64,7 @@ def fused_round_sharded(round_fn, centroids: torch.Tensor, *,
     return idx, sum_ranks(mesh, sums), sum_ranks(mesh, counts)
 
 
+@annotated("fdb.kmeans.fit")
 def fit_sharded(x: torch.Tensor, k: int, generator: torch.Generator, *,
                 mesh: CorpusMesh, n: int,
                 epsilon: float = DEFAULT_EPSILON,
@@ -111,18 +113,21 @@ def fit_sharded(x: torch.Tensor, k: int, generator: torch.Generator, *,
                           epsilon=epsilon, max_rounds=max_rounds,
                           impl=resolved)
         del sample
-        idx = _local_round_fn(x, base, fast)(sub.centroids)[0]
+        with annotate("fdb.kmeans.assign"):
+            idx = _local_round_fn(x, base, fast)(sub.centroids)[0]
         return KMeansResult(sub.centroids, idx, sub.rounds, sub.gradient)
 
     # Seeding: ops.kmeans._subsampled_init's draws on the gathered rows.
     cap = kmeans._seed_cap(k)
-    if n <= cap:
-        sample = gather_blocks(mesh, x, sizes, dim=1)
-    else:
-        rows = torch.randint(0, n, (cap,), generator=generator, device=dev)
-        sample = gather_rows(mesh, x, rows, n)
-    centroids, _ = kmeans.plusplus_init(sample, k, generator)
-    del sample
+    with annotate("fdb.kmeans.seeding"):
+        if n <= cap:
+            sample = gather_blocks(mesh, x, sizes, dim=1)
+        else:
+            rows = torch.randint(0, n, (cap,), generator=generator,
+                                 device=dev)
+            sample = gather_rows(mesh, x, rows, n)
+        centroids, _ = kmeans.plusplus_init(sample, k, generator)
+        del sample
 
     round_fn = _local_round_fn(x, base, fast)
     return kmeans.lloyd_loop(

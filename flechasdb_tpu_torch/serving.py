@@ -32,6 +32,7 @@ from .host import check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
 from .ops.bucketed import bucketize, query_bucketed, range_bucketed
 from .ops.distance import full_f32
+from .utils.profiling import annotate, annotated
 
 #: Budget for the masked scan's per-batch transients (its ADC tables are
 #: ``[B, P, D, C]`` f32: ~8 GB at the SIFT shape and B=1000).
@@ -106,7 +107,8 @@ def _rerank_exact(q: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
 
 
 def _host(*ts: torch.Tensor) -> tuple[np.ndarray, ...]:
-    return tuple(t.cpu().numpy() for t in ts)
+    with annotate("fdb.to_host"):       # where the host waits for the card
+        return tuple(t.cpu().numpy() for t in ts)
 
 
 class DeviceIndex:
@@ -176,15 +178,24 @@ class DeviceIndex:
                                   self.buckets, row_mask, k=k, nprobe=nprobe,
                                   metric=self.metric, approx=approx,
                                   rotation=self.rotation)
-        limit = self._masked_batch_limit()
-        parts = [query_masked_scan(qd[i:i + limit], self.centroids,
-                                   self.codebooks, self.codes, self.pidx,
-                                   row_mask, k=k, nprobe=nprobe,
-                                   metric=self.metric,
+        with annotate("fdb.to_device"):
+            chunks = qd.split(self._masked_batch_limit())
+        parts = [query_masked_scan(qc, self.centroids, self.codebooks,
+                                   self.codes, self.pidx, row_mask, k=k,
+                                   nprobe=nprobe, metric=self.metric,
                                    rotation=self.rotation)
-                 for i in range(0, len(qd), limit)]
-        return tuple(torch.cat(ts) for ts in zip(*parts))
+                 for qc in chunks]
+        with annotate("fdb.topk"):
+            return tuple(torch.cat(ts) for ts in zip(*parts))
 
+    def _to_device(self, q: np.ndarray, row_mask):
+        """The query batch and ``row_mask`` on this index's device."""
+        with annotate("fdb.to_device"):
+            return (torch.as_tensor(np.asarray(q, np.float32),
+                                    device=self.device),
+                    self._row_mask(row_mask))
+
+    @annotated("fdb.index.query")
     def query(self, q: np.ndarray, k: int, nprobe: int, row_mask=None,
               approx: bool | float = False,
               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -192,10 +203,10 @@ class DeviceIndex:
         ``row_mask [N] bool`` (numpy or tensor) excludes the corpus rows
         whose entry is False before the top-k; ``approx`` is answered
         exactly."""
-        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
-        return _host(*self._query(qd, k, nprobe, self._row_mask(row_mask),
-                                  approx))
+        qd, mask = self._to_device(q, row_mask)
+        return _host(*self._query(qd, k, nprobe, mask, approx))
 
+    @annotated("fdb.index.query")
     def query_rerank(self, q: np.ndarray, originals: torch.Tensor, k: int,
                      nprobe: int, rerank: int, row_mask=None,
                      approx: bool | float = False,
@@ -205,11 +216,12 @@ class DeviceIndex:
         both on the device: host ``(dists [B, k], rows [B, k])``. Rows that
         ``row_mask`` drops come out of the ADC pass at ``+inf`` and are
         never candidates."""
-        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
-        adc, rows, _ = self._query(qd, rerank, nprobe,
-                                   self._row_mask(row_mask), approx)
-        return _host(*_rerank_exact(qd, rows, torch.isfinite(adc), originals,
-                                    k=k, metric=self.metric))
+        qd, mask = self._to_device(q, row_mask)
+        adc, rows, _ = self._query(qd, rerank, nprobe, mask, approx)
+        with annotate("fdb.rerank"):
+            best = _rerank_exact(qd, rows, torch.isfinite(adc), originals,
+                                 k=k, metric=self.metric)
+        return _host(*best)
 
     def query_range(self, q: np.ndarray, radius: float, nprobe: int,
                     row_mask=None) -> list:
