@@ -245,6 +245,13 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    corpus on the card, recall@10 at least 0.95 and at least the ADC
    recall, printed beside the JAX record (0.990), 64 equal to the CPU
    plain path on the same buckets and the host copy of the corpus. The
+   bucketed top-k (``csrc/bucketed_topk.cu``), which every bucketed
+   query above ran (its launches counted with the path's): on the K-A
+   keys of the 200 queries at nprobe=32 (``ops.bucketed._probe_scan`` on
+   the same buckets: ``vdist [6400, 12,288]``, the cells' lengths and
+   buckets), ``ops.topk.bucketed_topk`` must equal
+   ``bucketed_topk_plain`` (the stable sort and its index arithmetic)
+   bit for bit in values, flat indices and rows, at kk=10 and kk=100. The
    streamed build: that host copy behind a read counter,
    ``StreamingDatabaseBuilder(src, device="cuda")`` with the same P, D,
    C and seed: one gather of at most 2,097,152 sorted unique rows, then
@@ -274,7 +281,10 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    SIFT-OPQ buckets with their rotated tables, phase 7's the CLI's,
    phase 8's the f64 build's, phase 9's the Deep10M staged build's,
    phase 12's the MIPS buckets with their dot tables, phase 13's the
-   GIST buckets).
+   GIST buckets). The bucketed top-k on phase 9's keys at kk=100: the
+   device time of a call (both kernels, ``topk_cells_kernel`` and
+   ``topk_merge_kernel``) as K-A's, cold and warm; the stable sort's and
+   one ``torch.topk`` call's CUDA-event times beside it.
    K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
@@ -363,9 +373,13 @@ queries, phases 4, 5, 6, 7, 8, 9, each sharded call of 11 and each leg
 of 12 and 13) and read just after; every kernel a
 path runs must have run, and every Lloyd round must have been followed
 by one cluster-sum pass. The line before the last is the kernels' JSON
-record: a row per TPU kernel of the JAX package, and one for the
+record: a row per TPU kernel of the JAX package, one for the
 cluster-sum pass (the sum halves of the two Lloyd kernels; its
-``library_ms`` is ``index_add_`` of the same sums), with its
+``library_ms`` is ``index_add_`` of the same sums), and one for the
+bucketed top-k, which replaces no TPU kernel (its ``library_ms`` is
+``torch.topk`` of kk over every slot, which keeps no order among equal
+keys; its ``overhead_bytes``, the stage-1 candidates written and read
+back, are left out of its bound), with its
 counterpart's launches over the paths (phases 2 to 9 and 11 to 13, the
 two ranks of phase 11 included), its time
 (``ms_by`` names the method; K-A's rows
@@ -381,7 +395,9 @@ bound from this run's inputs: the larger of bytes over 3.35 TB/s and
 operations over the rate of the units the kernel runs on, the H100 SXM's
 published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; their
 fast_math variants: bf16 tensor cores, 989.4 TFLOP/s; K-A: fp32, 67
-TFLOP/s). The operations are those the function needs (2·B·N·K·M for a
+TFLOP/s; the top-k: bytes alone, the live keys, the cells' lengths and
+buckets read, the rows gathered and the outputs written). The
+operations are those the function needs (2·B·N·K·M for a
 Lloyd round), not those of a route: the 3xTF32 product issues three times
 as many.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -446,6 +462,7 @@ SRC_BF = "flechasdb_tpu_torch/csrc/lloyd_round_fast.cu"
 SRC_C = "flechasdb_tpu_torch/csrc/lloyd_grouped.cu"
 SRC_CF = "flechasdb_tpu_torch/csrc/lloyd_grouped_fast.cu"
 SRC_S = "flechasdb_tpu_torch/csrc/cluster_sums.cu"
+SRC_T = "flechasdb_tpu_torch/csrc/bucketed_topk.cu"
 REPLACES = {
     "indexed": "flechasdb_tpu/ops/pallas_scan.py:528",
     "pipe": "flechasdb_tpu/ops/pallas_scan.py:320",
@@ -458,7 +475,11 @@ REPLACES = {
     # The sum halves of _round_kernel (:121-140) and of
     # _grouped_round_kernel (:208-224).
     "sums": "flechasdb_tpu/ops/pallas_kmeans.py:121,208",
+    # No Pallas kernel: XLA's lax.top_k over every slot.
+    "topk": "none (lax.top_k, flechasdb_tpu/ops/bucketed.py:346)",
 }
+#: The bucketed top-k's two kernels, a call.
+TOPK_KERNELS = ("topk_cells_kernel", "topk_merge_kernel")
 
 
 def log(msg: str) -> None:
@@ -483,11 +504,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(means)
 
 
-def device_ms(torch, fn, reps: int, kernel: str) -> dict:
+def device_ms(torch, fn, reps: int, kernel) -> dict:
     """Times ``reps`` calls of ``fn``: ``ms``, the device time of one
     launch of the kernels whose name holds ``kernel`` (``torch.profiler``'s
     CUDA activity, their total time over the launches it recorded: it may
-    miss one), each call after a read of ``L2_FLUSH_BYTES`` that evicts
+    miss one; ``kernel`` a tuple of names: the time of all of them over
+    the launches of the first, a call), each call after a read of
+    ``L2_FLUSH_BYTES`` that evicts
     its inputs from L2; ``warm_ms``, the same over back-to-back calls;
     ``by``, the method; ``host_ms``, the host clock per back-to-back call,
     ended by a synchronize. A window in which the profiler records no
@@ -495,6 +518,7 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
     dropped a whole window's kernel records on the H100 while the wrapper
     counted every launch); raises where none records one."""
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -515,10 +539,10 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
                 torch.cuda.synchronize()
             total = count = 0
             for e in prof.key_averages():
-                if kernel in e.key:
+                if any(name in e.key for name in names):
                     total += getattr(e, "self_device_time_total", None) \
                         or getattr(e, "self_cuda_time_total", 0)
-                    count += e.count
+                    count += e.count if names[0] in e.key else 0
             if count:
                 return total / count / 1e3, count
             keys = sorted({e.key[:60] for e in prof.key_averages()})[:8]
@@ -528,9 +552,10 @@ def device_ms(torch, fn, reps: int, kernel: str) -> dict:
 
     ms, count = profiled(True)
     warm_ms, _ = profiled(False)
+    what = "a launch" if len(names) == 1 else "a call of " + ", ".join(names)
     return {"ms": ms, "warm_ms": warm_ms, "host_ms": host_ms,
             "profiled": count,
-            "by": "torch.profiler, a launch, L2 flushed before each call"}
+            "by": f"torch.profiler, {what}, L2 flushed before each call"}
 
 
 def scan_case(torch, label: str, call, plain, bound_, reps: int) -> dict:
@@ -1298,6 +1323,95 @@ def scan_at_main_path(torch, index, q, nprobe, what, metric="l2"):
         scan_bound(*args, d), 20)
 
 
+def topk_bytes(lens: np.ndarray, l: int, b: int, kk: int) -> tuple:
+    """The bucketed top-k's bytes: ``(needed, overhead)``. Needed, the
+    function's: each cell's live keys read once, its length and bucket,
+    each winner's row gathered, and the values, flat indices and rows
+    written. Overhead, the design's: the stage-1 candidates (8 bytes
+    each: each 4096-slot tile's kk smallest, tile 0's pad slots below kk
+    among them) written and read back, mostly from L2."""
+    tile = 4096
+    cands = 0
+    for n in lens.tolist():
+        for t0 in range(0, l, tile):
+            end = min(t0 + tile, l)
+            live = min(n, end) - t0
+            cands += min(kk, end) if t0 == 0 else max(0, min(kk, live))
+    g = len(lens)
+    needed = 4 * int(lens.sum()) + 8 * g + b * kk * (4 + 4 + 8 + 4)
+    return needed, 16 * cands
+
+
+def topk_at_main_path(torch, index, q, nprobe: int, what: str) -> dict:
+    """The bucketed top-k on a path's own K-A keys: ``_probe_scan`` of the
+    batch ``q`` at ``nprobe`` on the bucketed ``index`` gives ``vdist``,
+    the cells' lengths and buckets, as ``query_bucketed`` passes them;
+    ``ops.topk.bucketed_topk`` must equal ``bucketed_topk_plain`` (the
+    stable sort and its index arithmetic) bit for bit, values (as bits:
+    −0 is not +0 there), flat indices and rows, at kk=K_TOP and
+    kk=RERANK (these launches are not counted in the path's run, which
+    has ended). Returns the case phase 10 times, at kk=RERANK."""
+    from flechasdb_tpu_torch.ops import bucketed, topk
+    bk, brows = index.buckets, index.buckets.rows
+    qd = torch.as_tensor(q, device="cuda")
+    vdist, _, bidx, lens = bucketed._probe_scan(
+        qd, index.centroids, index.codebooks, bk, nprobe, index.metric,
+        index.rotation)
+    b, _, l = vdist.shape
+    vdist = vdist.reshape(b * nprobe, l)
+    for kk in (K_TOP, RERANK):
+        kw = dict(nprobe=nprobe, kk=kk)
+        require(topk.kernel_takes(kk, nprobe * l),
+                f"kk={kk} at nprobe·L={nprobe * l} takes the sort's route")
+        got = topk.bucketed_topk(vdist, lens, bidx, brows, **kw)
+        want = topk.bucketed_topk_plain(vdist, lens, bidx, brows, **kw)
+        same = [torch.equal(got[0].view(torch.int32),
+                            want[0].contiguous().view(torch.int32)),
+                torch.equal(got[1], want[1]), torch.equal(got[2], want[2])]
+        require(all(same), f"bucketed_topk at {what} keys, kk={kk}: values, "
+                f"flat indices, rows equal to the stable sort's: {same}")
+    lens_h = lens.cpu().numpy()
+    needed, overhead = topk_bytes(lens_h, l, b, RERANK)
+    kw = dict(nprobe=nprobe, kk=RERANK)
+    live = int(lens_h.sum())
+    log(f"bucketed_topk at {what} keys (B={b}, nprobe={nprobe}, L={l}, "
+        f"{live} live slots, {100 * live / vdist.numel():.1f}%): values, "
+        f"flat indices and rows bit-equal to the stable sort's at kk="
+        f"{K_TOP} and kk={RERANK}; bytes needed {needed}, candidates "
+        f"written and read back {overhead}")
+    return {"label": f"bucketed_topk at {what} keys: B={b}, nprobe="
+            f"{nprobe}, L={l}, kk={RERANK}",
+            "shape": {"B": b, "nprobe": nprobe, "L": l, "kk": RERANK,
+                      "live_slots": live,
+                      "fill": live / vdist.numel()},
+            "call": lambda: topk.bucketed_topk(vdist, lens, bidx, brows,
+                                               **kw),
+            "plain": lambda: topk.bucketed_topk_plain(vdist, lens, bidx,
+                                                      brows, **kw),
+            "library": lambda: torch.topk(vdist.reshape(b, -1), RERANK,
+                                          dim=1, largest=False),
+            "bound": bound(needed, 0.0), "overhead_bytes": overhead,
+            "reps": 20}
+
+
+def time_topk(torch, case: dict) -> None:
+    """Adds the top-k's :func:`device_ms` over both its kernels, and the
+    CUDA-event times of its plain version and of ``torch.topk``, to
+    ``case``."""
+    case.update(device_ms(torch, case.pop("call"), case["reps"],
+                          TOPK_KERNELS))
+    case["plain_ms"] = cuda_ms(torch, case.pop("plain"), 3)
+    case["library_ms"] = cuda_ms(torch, case.pop("library"), 3)
+    log(f"{case['label']}: kernel {case['ms']:.4f} ms device a call with a "
+        f"cold L2, {case['warm_ms']:.4f} ms back to back ({case['profiled']}"
+        f" calls profiled), host {case['host_ms'] * 1e3:.1f} us a call  "
+        f"plain {case['plain_ms']:.4f} ms  torch.topk "
+        f"{case['library_ms']:.4f} ms  bound {case['bound'][0]:.4f} ms "
+        f"({case['bound'][1]}; the candidates' "
+        f"{case['overhead_bytes'] / HBM_BYTES * 1e3:.4f} ms more at HBM's "
+        "rate)")
+
+
 def ground_truth(torch, x, q, k: int) -> np.ndarray:
     """Exact k nearest rows on the card: f32 expanded distances pick 4k
     candidates, a subtract-then-square re-score orders them."""
@@ -1380,6 +1494,8 @@ def sift_run(torch, seed: int):
     one_sum_pass_a_round(after_build, "the SIFT build")
     require(launches["adc_scan"] > after_build["adc_scan"],
             "the SIFT queries launched no adc_scan")
+    require(launches["bucketed_topk"] > after_build["bucketed_topk"],
+            "the SIFT queries launched no bucketed_topk")
     check_build(db, x, SIFT_P, SIFT_D, C)
 
     t0 = time.perf_counter()
@@ -2848,7 +2964,7 @@ def deep_serve(torch, q_dev, x, xh, built, gt: np.ndarray):
     DEEP_NPROBE against the CPU plain path on the same buckets, with and
     without rerank (the host corpus ``xh``). Returns ``(recall at
     DEEP_NPROBE, the launch counts read after the timed queries and before
-    the checks, K-A case)``."""
+    the checks, K-A case, top-k case)``."""
     from flechasdb_tpu_torch import _kernels
     from flechasdb_tpu_torch.ops.bucketed import Buckets, query_bucketed
     from flechasdb_tpu_torch.serving import DeviceIndex, _rerank_exact
@@ -2897,6 +3013,8 @@ def deep_serve(torch, q_dev, x, xh, built, gt: np.ndarray):
         _, t = timed(lambda: index.query_rerank(qh, x, **kw))
         rr_ms.append(t)
     served = dict(_kernels.LAUNCHES)
+    require(served["bucketed_topk"] > 0, "the Deep10M queries launched no "
+            "bucketed_topk")
     r_rr = recall_at(rr[1], gt)
     log(f"Deep10M DeviceIndex.query_rerank({len(qh)}, k={K_TOP}, nprobe="
         f"{DEEP_NPROBE}, rerank={RERANK}) against the {DEEP_N}-row corpus "
@@ -2932,7 +3050,9 @@ def deep_serve(torch, q_dev, x, xh, built, gt: np.ndarray):
         f"{time.perf_counter() - t0:.3f} s)")
     case = scan_at_main_path(torch, index, qh[:N_CHECK], DEEP_NPROBE,
                              "the Deep10M staged build's")
-    return recalls[DEEP_NPROBE], served, case
+    t_case = topk_at_main_path(torch, index, qh, DEEP_NPROBE,
+                               "the Deep10M staged build's")
+    return recalls[DEEP_NPROBE], served, case, t_case
 
 
 def deep_streamed(torch, ft, xh, q, gt: np.ndarray, seed: int,
@@ -3013,7 +3133,7 @@ def deep_run(torch, seed: int):
     """Phase 9: the JAX package's Deep10M scale-up on the card
     (``benchmarks/deep10m.py``): data, the staged build, its serving, the
     streamed build. Returns ``(launches, K-A case, the final assignment's
-    round timed)``."""
+    round timed, the top-k case)``."""
     import flechasdb_tpu_torch as ft
     from flechasdb_tpu_torch import _kernels, synth
     from flechasdb_tpu_torch.ops.exact import exact_topk
@@ -3046,7 +3166,8 @@ def deep_run(torch, seed: int):
         f"({xh.nbytes} bytes): the CPU rerank check and the streamed build "
         "read it")
     _kernels.reset_launches()
-    staged_recall, served, case = deep_serve(torch, q, x, xh, built, gt)
+    staged_recall, served, case, t_case = deep_serve(torch, q, x, xh,
+                                                     built, gt)
     require(served["adc_scan"] > 0, "the Deep10M queries launched no "
             "adc_scan")
     del built
@@ -3063,7 +3184,7 @@ def deep_run(torch, seed: int):
     total = {k: launches[k] + served[k] + streamed[k] for k in launches}
     del x, q
     torch.cuda.empty_cache()
-    return total, case, final
+    return total, case, final, t_case
 
 
 # --- phase 11: the sharded paths ---------------------------------------------
@@ -4161,6 +4282,17 @@ def scan_row(replaces, launches, err, case, name="adc_scan"):
                warm_ms=case["warm_ms"], host_ms=case["host_ms"])
 
 
+def topk_row(launches, case):
+    """The bucketed top-k's row from :func:`time_topk`: phase 9's keys,
+    held bit-equal to the stable sort (``max_abs_err`` 0)."""
+    out = row("bucketed_topk", "cuda", SRC_T, REPLACES["topk"], launches,
+              0.0, case["ms"], case["plain_ms"], *case["bound"], case["by"],
+              warm_ms=case["warm_ms"], host_ms=case["host_ms"],
+              shape=case["shape"], overhead_bytes=case["overhead_bytes"])
+    out["library_ms"] = case["library_ms"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -4328,7 +4460,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    deep_launches, a_deep, deep_final = deep_run(torch, args.seed)
+    deep_launches, a_deep, deep_final, topk_case = deep_run(torch,
+                                                            args.seed)
     log(f"phase 9 (the Deep10M shape): {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     gist_launches_, a_gist = gist_run(torch, args.seed)
@@ -4338,6 +4471,7 @@ def main() -> None:
                 a_mips, a_gist]
     for case in a_cases + [lookup]:
         time_scan(torch, case)
+    time_topk(torch, topk_case)
     lloyd_cases = b_cases + c_cases + bf_cases + cf_cases
     for case in (e[5] for e in lloyd_cases if e[5]):
         case.update(pass_device_ms(torch, case.pop("launch")))
@@ -4354,7 +4488,8 @@ def main() -> None:
             f"{case['ms']:.4f} ms device a launch ({case['calls']} "
             f"profiled), bound {case['bound'][0]:.4f} ms "
             f"({case['bound'][1]})")
-    log(f"phase 10 (K-A, cluster-sum pass and assignment times): "
+    log(f"phase 10 (K-A, the top-k, cluster-sum pass and assignment "
+        f"times): "
         f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -4391,6 +4526,7 @@ def main() -> None:
         sums_row(launches["cluster_sums"],
                  max([e[0] for e in lloyd_cases] + [sort_err]),
                  b_cases[1][5]),
+        topk_row(launches["bucketed_topk"], topk_case),
     ]
     log(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,10 +43,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launches`; the
 #: fast_math variants of K-B and K-C count under their own keys, and the
 #: cluster-sum pass that follows each of their rounds under
-#: ``cluster_sums``, once a pass whichever route ran.
+#: ``cluster_sums``, once a pass whichever route ran; the bucketed top-k's
+#: two kernels under ``bucketed_topk``, once a pair.
 LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
             "lloyd_grouped": 0, "lloyd_round_fast": 0,
-            "lloyd_grouped_fast": 0, "cluster_sums": 0}
+            "lloyd_grouped_fast": 0, "cluster_sums": 0, "bucketed_topk": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: The compiler's output of the build this process made (``None`` when the
@@ -150,6 +151,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.fdb_cluster_sums_scratch.argtypes = [i, i, i, i, ll, ll]
     lib.fdb_cluster_sums_scratch.restype = None
+    lib.fdb_bucketed_topk.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.fdb_bucketed_topk.restype = i
+    lib.fdb_bucketed_topk_scratch.argtypes = [i, i, i]
+    lib.fdb_bucketed_topk_scratch.restype = ctypes.c_longlong
 
 
 def load() -> ctypes.CDLL:

@@ -9,8 +9,10 @@ only its ``nprobe`` buckets:
 2. ADC tables for the probed partitions only, ``[B, nprobe, D, C]``,
 3. the bucket scan (kernel K-A on the card, :mod:`.scan`), then the
    attribute filter's row mask where one is given,
-4. a stable ascending sort over ``[B, nprobe·L]`` for the k best, or, for
-   range search (:func:`range_bucketed`), every candidate to the host.
+4. the k best of ``[B, nprobe·L]`` in a stable sort's order
+   (:func:`.topk.bucketed_topk`: on the card a selection over the live
+   slots), or, for range search (:func:`range_bucketed`), every candidate
+   to the host.
 
 ``torch.topk`` promises no order among equal values, while the JAX
 package's ``lax.top_k`` breaks ties to the lower index; a stable sort
@@ -29,6 +31,7 @@ from ..utils.profiling import annotate, count
 from .adc import _dot_tables, _rotated, coarse_scores
 from .distance import full_f32
 from .scan import adc_lookup_indexed
+from .topk import bucketed_topk
 
 
 class Buckets(NamedTuple):
@@ -106,9 +109,12 @@ def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
 def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
                 codebooks: torch.Tensor, buckets: Buckets, nprobe: int,
                 metric: str, rotation: Optional[torch.Tensor],
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Steps 1–3: ``(vdist [B, nprobe, L], probed [B, nprobe])``. K-A
-    takes the buckets' lengths, so pad slots come back ``+inf``."""
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Steps 1–3: ``(vdist [B, nprobe, L], probed [B, nprobe], bidx
+    [B·nprobe] int32, lens [B·nprobe] int32)``, the probed buckets and
+    their lengths flat as K-A takes them; K-A writes ``+inf`` in the pad
+    slots."""
     b = q.shape[0]
     d, c, _ = codebooks.shape
     l = buckets.codes.shape[2]
@@ -123,11 +129,29 @@ def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
         tables = probed_tables(q, centroids, codebooks, probed, metric,
                                coarse, rotation)
     with annotate("fdb.scan"):
+        bidx = probed.reshape(-1).to(torch.int32).contiguous()
+        lens = lens.reshape(-1).contiguous()
         vdist = adc_lookup_indexed(
             buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
-            probed.reshape(-1).to(torch.int32).contiguous(),
-            lens.reshape(-1).contiguous(), d=d)             # [B·nprobe, L]
-        return vdist.reshape(b, nprobe, l), probed
+            bidx, lens, d=d)                                # [B·nprobe, L]
+        return vdist.reshape(b, nprobe, l), probed, bidx, lens
+
+
+def topk_rows(vdist: torch.Tensor, lens: torch.Tensor, bidx: torch.Tensor,
+              brows: torch.Tensor, *, k: int,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step 4 over ``vdist [B, nprobe, L]`` with the cells' ``lens`` and
+    buckets ``bidx`` (``[B·nprobe]`` int32) and the buckets' ``brows [P,
+    L]``: ``(distances [B, k], rows [B, k] int32)``, ``+inf`` and row 0
+    past the ``nprobe·L`` slots."""
+    b, nprobe, l = vdist.shape
+    kk = min(k, nprobe * l)
+    dist, _, rows = bucketed_topk(vdist.reshape(b * nprobe, l), lens, bidx,
+                                  brows, nprobe=nprobe, kk=kk)
+    if kk < k:
+        dist = torch.nn.functional.pad(dist, (0, k - kk), value=float("inf"))
+        rows = torch.nn.functional.pad(rows, (0, k - kk))
+    return dist, rows
 
 
 def _kept(rows: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
@@ -151,26 +175,17 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     ``approx`` is accepted and answered exactly, as the JAX package does
     off the TPU. ``rotation``: the OPQ rotation the codes were made in
     (K-A scans the rotated tables unchanged)."""
-    b = q.shape[0]
-    l = buckets.codes.shape[2]
-    vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
-                                metric, rotation)
+    vdist, probed, bidx, lens = _probe_scan(q, centroids, codebooks,
+                                            buckets, nprobe, metric,
+                                            rotation)
     if row_mask is not None:                  # one gather and select
         with annotate("fdb.scan"):
             vdist = vdist.masked_fill(
                 ~_kept(buckets.rows[probed], row_mask), float("inf"))
 
     with annotate("fdb.topk"):
-        kk = min(k, nprobe * l)
-        best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
-        dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
-        win_part = probed.gather(1, flat_idx // l)
-        rows = buckets.rows.reshape(-1)[win_part * l + flat_idx % l]
-        if kk < k:
-            dist = torch.nn.functional.pad(dist, (0, k - kk),
-                                           value=float("inf"))
-            rows = torch.nn.functional.pad(rows, (0, k - kk))
-        return dist, rows.to(torch.int32), probed.to(torch.int32)
+        dist, rows = topk_rows(vdist, lens, bidx, buckets.rows, k=k)
+        return dist, rows, probed.to(torch.int32)
 
 
 def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
@@ -189,8 +204,8 @@ def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     slots' ``+inf`` itself (the keys are the same), and a pad slot's row
     is already ``-1`` in :class:`Buckets`."""
     b = q.shape[0]
-    vdist, probed = _probe_scan(q, centroids, codebooks, buckets, nprobe,
-                                metric, rotation)
+    vdist, probed, _, _ = _probe_scan(q, centroids, codebooks, buckets,
+                                      nprobe, metric, rotation)
     rows = buckets.rows[probed]                             # [B, nprobe, L]
     if row_mask is not None:
         drop = ~_kept(rows, row_mask)

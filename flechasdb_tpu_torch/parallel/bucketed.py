@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from ..ops.adc import coarse_scores
-from ..ops.bucketed import Buckets, _kept, probed_tables
+from ..ops.bucketed import Buckets, _kept, probed_tables, topk_rows
 from ..ops.scan import adc_lookup_indexed
 from ..utils.profiling import annotate
 from .mesh import CorpusMesh, all_gather, merge_topk
@@ -59,11 +59,14 @@ def shard_buckets(mesh: CorpusMesh, buckets: Buckets) -> Buckets:
 def _owned_scan(q: torch.Tensor, centroids: torch.Tensor,
                 codebooks: torch.Tensor, local: Buckets, mesh: CorpusMesh,
                 nprobe: int, metric: str, rotation: Optional[torch.Tensor],
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
     """Steps 1 and 2: ``(vdist [B, nprobe, L], slot [B, nprobe], probed
-    [B, nprobe])``; ``slot`` is the local bucket of an owned probe (0
-    elsewhere), and K-A writes ``+inf`` past each owned bucket's length
-    and over every unowned slot."""
+    [B, nprobe], bidx [B·nprobe] int32, lens [B·nprobe] int32)``; ``slot``
+    is the local bucket of an owned probe (0 elsewhere), ``bidx`` and
+    ``lens`` the flat buckets and lengths K-A takes (0 where unowned), and
+    K-A writes ``+inf`` past each owned bucket's length and over every
+    unowned slot."""
     b = q.shape[0]
     d, c, _ = codebooks.shape
     pl, _, l = local.codes.shape
@@ -78,11 +81,12 @@ def _owned_scan(q: torch.Tensor, centroids: torch.Tensor,
         tables = probed_tables(q, centroids, codebooks, probed, metric,
                                coarse, rotation)
     with annotate("fdb.scan"):
+        bidx = slot.reshape(-1).to(torch.int32).contiguous()
+        lens = lens.reshape(-1).to(torch.int32).contiguous()
         vdist = adc_lookup_indexed(
             local.codes, tables.reshape(b * nprobe, d * c).contiguous(),
-            slot.reshape(-1).to(torch.int32).contiguous(),
-            lens.reshape(-1).to(torch.int32).contiguous(), d=d)
-        return vdist.reshape(b, nprobe, l), slot, probed
+            bidx, lens, d=d)
+        return vdist.reshape(b, nprobe, l), slot, probed, bidx, lens
 
 
 def query_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,
@@ -98,24 +102,14 @@ def query_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,
     ``(distances [B, k], rows [B, k] int32, probed [B, nprobe] int32)``
     on every rank. ``row_mask [N] bool`` is over global corpus rows, the
     same on every rank."""
-    b = q.shape[0]
-    l = buckets.codes.shape[2]
-    vdist, slot, probed = _owned_scan(q, centroids, codebooks, buckets,
-                                      mesh, nprobe, metric, rotation)
+    vdist, slot, probed, bidx, lens = _owned_scan(
+        q, centroids, codebooks, buckets, mesh, nprobe, metric, rotation)
     if row_mask is not None:
         with annotate("fdb.scan"):
             vdist = vdist.masked_fill(
                 ~_kept(buckets.rows[slot], row_mask), float("inf"))
     with annotate("fdb.topk"):
-        kk = min(k, nprobe * l)
-        best = torch.sort(vdist.reshape(b, nprobe * l), dim=1, stable=True)
-        dist, flat_idx = best.values[:, :kk], best.indices[:, :kk]
-        win_slot = slot.gather(1, flat_idx // l)
-        rows = buckets.rows.reshape(-1)[win_slot * l + flat_idx % l]
-        if kk < k:
-            dist = torch.nn.functional.pad(dist, (0, k - kk),
-                                           value=float("inf"))
-            rows = torch.nn.functional.pad(rows, (0, k - kk))
+        dist, rows = topk_rows(vdist, lens, bidx, buckets.rows, k=k)
         dist, rows = merge_topk(mesh, dist, rows, k)
         return dist, rows, probed.to(torch.int32)
 
@@ -136,8 +130,8 @@ def range_bucketed_sharded(q: torch.Tensor, centroids: torch.Tensor,
     crosses the mesh: it is the result of a range search."""
     b = q.shape[0]
     pl, _, l = buckets.codes.shape
-    vdist, slot, probed = _owned_scan(q, centroids, codebooks, buckets,
-                                      mesh, nprobe, metric, rotation)
+    vdist, slot, probed, _, _ = _owned_scan(
+        q, centroids, codebooks, buckets, mesh, nprobe, metric, rotation)
     rows = buckets.rows[slot]                                # [B, nprobe, L]
     if row_mask is not None:
         drop = ~_kept(rows, row_mask)

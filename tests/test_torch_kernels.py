@@ -10,7 +10,8 @@ def test_launch_counters_cover_every_route():
     assert set(_kernels.LAUNCHES) == {"adc_scan", "adc_lookup",
                                       "lloyd_round", "lloyd_grouped",
                                       "lloyd_round_fast",
-                                      "lloyd_grouped_fast", "cluster_sums"}
+                                      "lloyd_grouped_fast", "cluster_sums",
+                                      "bucketed_topk"}
     _kernels.LAUNCHES["lloyd_grouped"] += 3
     _kernels.reset_launches()
     assert not any(_kernels.LAUNCHES.values())
