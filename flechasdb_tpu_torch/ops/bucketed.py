@@ -126,6 +126,7 @@ def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
         count("bucketed.slots", b * nprobe * l)
         count("bucketed.real_slots", lens)
     with annotate("fdb.tables"):
+        count("tables.cells", b * nprobe)
         tables = probed_tables(q, centroids, codebooks, probed, metric,
                                coarse, rotation)
     with annotate("fdb.scan"):

@@ -30,7 +30,7 @@ import torch
 from ..ops.adc import coarse_scores
 from ..ops.bucketed import Buckets, _kept, probed_tables, topk_rows
 from ..ops.scan import adc_lookup_indexed
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count
 from .mesh import CorpusMesh, all_gather, merge_topk
 
 
@@ -78,6 +78,7 @@ def _owned_scan(q: torch.Tensor, centroids: torch.Tensor,
         slot = torch.where(owned, lidx, 0)
         lens = torch.where(owned, local.lengths[slot], 0)
     with annotate("fdb.tables"):
+        count("tables.cells", b * nprobe)
         tables = probed_tables(q, centroids, codebooks, probed, metric,
                                coarse, rotation)
     with annotate("fdb.scan"):

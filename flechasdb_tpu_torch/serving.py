@@ -32,7 +32,7 @@ from .host import check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
 from .ops.bucketed import bucketize, query_bucketed, range_bucketed
 from .ops.distance import full_f32
-from .utils.profiling import annotate, annotated
+from .utils.profiling import annotate, annotated, count
 
 #: Budget for the masked scan's per-batch transients (its ADC tables are
 #: ``[B, P, D, C]`` f32: ~8 GB at the SIFT shape and B=1000).
@@ -219,8 +219,10 @@ class DeviceIndex:
         qd, mask = self._to_device(q, row_mask)
         adc, rows, _ = self._query(qd, rerank, nprobe, mask, approx)
         with annotate("fdb.rerank"):
-            best = _rerank_exact(qd, rows, torch.isfinite(adc), originals,
-                                 k=k, metric=self.metric)
+            valid = torch.isfinite(adc)
+            count("rerank.rows", valid)
+            best = _rerank_exact(qd, rows, valid, originals, k=k,
+                                 metric=self.metric)
         return _host(*best)
 
     def query_range(self, q: np.ndarray, radius: float, nprobe: int,

@@ -13,13 +13,14 @@ The program marks its stages with :func:`annotate` (``fdb.*`` spans:
 ``fdb.query_batch``, ``fdb.index.query``, ``fdb.probe``, ``fdb.tables``,
 ``fdb.scan``, ``fdb.topk`` ... ``fdb.build``, ``fdb.kmeans.lloyd``) and
 counts work with :func:`count` (``bucketed.slots``,
-``bucketed.real_slots``). Both record only while a profiler collects:
-with none, a span or a count costs one check of the profiler's flag. A
-span is then a ``record_function``, a ``user_annotation`` on the same
-timeline as the card's kernels and the runtime calls that launched them,
-so it keeps no clock of its own. A count of a device tensor is summed on
-the device, so counting never waits for the card; :func:`counters` reads
-the sums (one synchronization).
+``bucketed.real_slots``, ``tables.cells``, ``rerank.rows``). Both record
+only while a profiler collects: with none, a span or a count costs one
+check of the profiler's flag. A span is then a ``record_function``, a
+``user_annotation`` on the same timeline as the card's kernels and the
+runtime calls that launched them, so it keeps no clock of its own. A
+count of a device tensor is summed on the device, so counting never
+waits for the card; :func:`counters` reads the sums (one
+synchronization).
 """
 
 from __future__ import annotations

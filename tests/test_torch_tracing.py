@@ -7,10 +7,14 @@ no ``record_function`` is entered and no counter moves. Under a CPU
 ``Database.query_batch`` on the masked layout emit their ``fdb.`` spans
 nested as the layers nest, and each operator of a call lies in exactly
 one leaf stage. The bucketed counters count the probed partitions' rows
-and slots, the build emits one seeding span a fit and one sync span a
-Lloyd round, and nothing the program returns changes under a profiler.
+and slots, ``tables.cells`` the (query, probed partition) tables and
+``rerank.rows`` the rerank's candidates that hold a row, the build emits
+one seeding span a fit and one sync span a Lloyd round, and nothing the
+program returns changes under a profiler, also at the GIST1M
+configuration's widths (960 dimensions, 60 divisions, 256 codewords).
 """
 
+import functools
 import json
 
 import numpy as np
@@ -19,7 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import flechasdb_tpu_torch as ft
-from flechasdb_tpu_torch import serving
+from flechasdb_tpu_torch import serving, synth
 from flechasdb_tpu_torch.parallel import build as pbuild
 from flechasdb_tpu_torch.utils import profiling
 
@@ -51,15 +55,27 @@ def _build(x, seed=7, events=None):
                                pq_cap=300, device="cpu")
 
 
-def _bucketed():
-    """``(index, originals, queries)``: the staged build's buckets."""
-    x, q = _blobs(1)
-    b = _build(x)
-    index = serving.DeviceIndex(
+def _index(b):
+    return serving.DeviceIndex(
         *(t.numpy() for t in (b.partition_centroids, b.codebooks, b.codes,
                               b.partition_indices)),
         layout="bucketed", device="cpu")
-    return index, torch.from_numpy(x), q
+
+
+def _bucketed():
+    """``(index, originals, queries)``: the staged build's buckets."""
+    x, q = _blobs(1)
+    return _index(_build(x)), torch.from_numpy(x), q
+
+
+@functools.cache
+def _gist():
+    """``(index, originals, queries)`` at the GIST1M widths: 4,096 rows of
+    960 dimensions, D=60, C=256, on the staged build's buckets."""
+    x, q = synth.gmm_pair(np.random.default_rng(6), 4096, 12, 960,
+                          n_clusters=32, intrinsic=32)
+    b = pbuild.build_staged(x, P, 60, 256, 5, device="cpu")
+    return _index(b), torch.from_numpy(x), q
 
 
 def _masked_db():
@@ -74,6 +90,11 @@ def _rerank_call():
     return lambda: index.query_rerank(q, x, k=K, nprobe=NPROBE, rerank=20)
 
 
+def _gist_call():
+    index, x, q = _gist()
+    return lambda: index.query_rerank(q, x, k=10, nprobe=2, rerank=100)
+
+
 def _batch_call():
     db, q = _masked_db()
     assert db._device_state().layout == "masked"
@@ -86,7 +107,7 @@ def _build_call():
 
 
 CALLS = {"rerank": _rerank_call, "query_batch": _batch_call,
-         "build": _build_call}
+         "build": _build_call, "gist_rerank": _gist_call}
 
 
 def _events(fn, tmp_path):
@@ -169,22 +190,50 @@ def test_query_spans_nest_and_every_operator_lies_in_one_stage(
         assert sum(_inside(op, s) for s in leaves) == 1, op["name"]
 
 
+def _probed(index, q, nprobe):
+    """The probe worked out again from the centroids, in float64."""
+    cents = index.centroids.double()
+    key = ((torch.from_numpy(q).double()[:, None] - cents[None]) ** 2) \
+        .sum(-1)
+    return torch.argsort(key, dim=1, stable=True)[:, :nprobe]
+
+
 def test_bucketed_counters_count_the_probed_rows_and_slots(tmp_path):
     index, x, q = _bucketed()
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU]):
             index.query_rerank(q, x, k=K, nprobe=NPROBE, rerank=20)
-    # The probe worked out again from the centroids, in float64.
     rows = index.buckets.rows
     counts = (rows >= 0).sum(dim=1)
-    cents = index.centroids.double()
-    key = ((torch.from_numpy(q).double()[:, None] - cents[None]) ** 2) \
-        .sum(-1)
-    probed = torch.argsort(key, dim=1, stable=True)[:, :NPROBE]
+    probed = _probed(index, q, NPROBE)
     got = profiling.counters()
     assert got["bucketed.real_slots"] == 2 * int(counts[probed].sum())
     assert got["bucketed.slots"] == 2 * len(q) * NPROBE * rows.shape[1]
     assert 0 < got["bucketed.real_slots"] < got["bucketed.slots"]
+
+
+@pytest.mark.parametrize("shape, nprobe, rerank", [
+    ("blobs", NPROBE, 20), ("blobs", 1, 200), ("gist", 2, 100),
+    ("gist", 1, 1000)])
+def test_tables_and_rerank_counters_count_cells_and_live_candidates(
+        shape, nprobe, rerank):
+    """``tables.cells`` counts B·nprobe a call; ``rerank.rows`` the
+    candidates that hold a row: ``rerank`` a query, or fewer where its
+    probed partitions hold fewer rows. Neither moves with no profiler."""
+    index, x, q = _bucketed() if shape == "blobs" else _gist()
+    index.query_rerank(q, x, k=K, nprobe=nprobe, rerank=rerank)
+    assert profiling.counters().get("tables.cells", 0) == 0
+    assert profiling.counters().get("rerank.rows", 0) == 0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            index.query_rerank(q, x, k=K, nprobe=nprobe, rerank=rerank)
+    counts = (index.buckets.rows >= 0).sum(dim=1)
+    held = counts[_probed(index, q, nprobe)].sum(dim=1)
+    got = profiling.counters()
+    assert got["tables.cells"] == 2 * len(q) * nprobe
+    assert got["rerank.rows"] == 2 * int(held.clamp_max(rerank).sum())
+    if rerank > int(counts.max()) * nprobe:
+        assert got["rerank.rows"] < 2 * len(q) * rerank   # some ran dry
 
 
 def test_a_build_emits_one_seeding_a_fit_and_one_sync_a_round(tmp_path):
