@@ -87,8 +87,15 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    ``cluster_sums_ordered``'s: K-B at the coarse fit (B=1, N=1M, K=1024,
    M=960; K-B fast's chunked bands) and K-C at the PQ fit (B=60, N=1M,
    K=256, m=16: the last of 8 groups holds 4 pad divisions), each K-C
-   also held to K-B's picks on the ungrouped data. K-A is only checked
-   here and timed in phase 10.
+   also held to K-B's picks on the ungrouped data. The probed
+   partitions' L2 tables (``csrc/probed_tables.cu``, through
+   ``ops.bucketed.probed_tables``) against the plain formula
+   (``l2_tables_plain``) at both serving cells' shapes, GIST1M's (B=1000,
+   nprobe=10, D=60, C=256, 16 dimensions a division, P=1024) and
+   Deep10M's (B=200, nprobe=32, D=8, 12 a division, P=4096), the probes
+   the first nprobe of a stable sort of random scores: within rel 1e-4
+   and an abs 1e-4 of the largest entry. K-A and the tables are only
+   checked here and timed in phase 10.
 2. The headline slice. ``DatabaseBuilder(x, device="cuda")`` over
    bench.py's data (100,000 x 1536 unit rows; P=100, D=12, C=256), then
    ``query_batch`` over 64 queries and ``query`` over 8, k=10, nprobe=5.
@@ -284,7 +291,10 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    GIST buckets). The bucketed top-k on phase 9's keys at kk=100: the
    device time of a call (both kernels, ``topk_cells_kernel`` and
    ``topk_merge_kernel``) as K-A's, cold and warm; the stable sort's and
-   one ``torch.topk`` call's CUDA-event times beside it.
+   one ``torch.topk`` call's CUDA-event times beside it. The tables
+   kernel at phase 1's two shapes: the device time of a
+   ``probed_tables_kernel`` launch as K-A's, cold and warm, beside the
+   plain formula's CUDA-event time.
    K-A's calls
    last microseconds, less than the host's time to issue one, so its time
    is the device's: the profiler's CUDA activity for the kernel, a
@@ -379,7 +389,10 @@ cluster-sum pass (the sum halves of the two Lloyd kernels; its
 bucketed top-k, which replaces no TPU kernel (its ``library_ms`` is
 ``torch.topk`` of kk over every slot, which keeps no order among equal
 keys; its ``overhead_bytes``, the stage-1 candidates written and read
-back, are left out of its bound), with its
+back, are left out of its bound), and one for the tables kernel, which
+replaces none either (GIST1M's shape, Deep10M's under ``deep10m``; its
+``library_ms`` is the plain formula's time, the PyTorch the port ran
+before it), with its
 counterpart's launches over the paths (phases 2 to 9 and 11 to 13, the
 two ranks of phase 11 included), its time
 (``ms_by`` names the method; K-A's rows
@@ -396,7 +409,10 @@ operations over the rate of the units the kernel runs on, the H100 SXM's
 published peaks (K-B, K-C: TF32 tensor cores, 494.7 TFLOP/s; their
 fast_math variants: bf16 tensor cores, 989.4 TFLOP/s; K-A: fp32, 67
 TFLOP/s; the top-k: bytes alone, the live keys, the cells' lengths and
-buckets read, the rows gathered and the outputs written). The
+buckets read, the rows gathered and the outputs written; the tables as
+``portbench/roofline/tables.py`` reckons them: each table written once,
+the probed centroids (each at most once), queries and codebooks read
+once, 2·cells·C·M operations at the fp32 rate). The
 operations are those the function needs (2·B·N·K·M for a
 Lloyd round), not those of a route: the 3xTF32 product issues three times
 as many.
@@ -463,6 +479,7 @@ SRC_C = "flechasdb_tpu_torch/csrc/lloyd_grouped.cu"
 SRC_CF = "flechasdb_tpu_torch/csrc/lloyd_grouped_fast.cu"
 SRC_S = "flechasdb_tpu_torch/csrc/cluster_sums.cu"
 SRC_T = "flechasdb_tpu_torch/csrc/bucketed_topk.cu"
+SRC_PT = "flechasdb_tpu_torch/csrc/probed_tables.cu"
 REPLACES = {
     "indexed": "flechasdb_tpu/ops/pallas_scan.py:528",
     "pipe": "flechasdb_tpu/ops/pallas_scan.py:320",
@@ -477,6 +494,8 @@ REPLACES = {
     "sums": "flechasdb_tpu/ops/pallas_kmeans.py:121,208",
     # No Pallas kernel: XLA's lax.top_k over every slot.
     "topk": "none (lax.top_k, flechasdb_tpu/ops/bucketed.py:346)",
+    # No Pallas kernel: XLA's expansion of the probed tables.
+    "tables": "none (XLA, flechasdb_tpu/ops/bucketed.py:125)",
 }
 #: The bucketed top-k's two kernels, a call.
 TOPK_KERNELS = ("topk_cells_kernel", "topk_merge_kernel")
@@ -1412,6 +1431,64 @@ def time_topk(torch, case: dict) -> None:
         "rate)")
 
 
+def parity_tables(torch, gen, what: str, b: int, nprobe: int, d: int,
+                  sub: int, p: int) -> dict:
+    """Phase 1: ``probed_tables`` on the card (the kernel) against
+    ``l2_tables_plain`` at a serving cell's shape, the probes the first
+    ``nprobe`` of a stable sort as the main path takes them; its bound as
+    the benchmark's ``portbench/roofline/tables.py`` reckons it. Returns
+    the case phase 10 times."""
+    from flechasdb_tpu_torch import _kernels
+    from flechasdb_tpu_torch.ops import bucketed
+    from portbench.roofline import tables as tables_roofline
+    m = d * sub
+    q = torch.randn((b, m), generator=gen, device="cuda")
+    cents = torch.randn((p, m), generator=gen, device="cuda")
+    books = torch.randn((d, C, sub), generator=gen, device="cuda")
+    scores = torch.rand((b, p), generator=gen, device="cuda")
+    probed = torch.sort(scores, dim=1, stable=True).indices[:, :nprobe]
+    before = _kernels.LAUNCHES["probed_tables"]
+    got = bucketed.probed_tables(q, cents, books, probed)
+    want = bucketed.l2_tables_plain(q, cents, books, probed)
+    torch.cuda.synchronize()
+    require(_kernels.LAUNCHES["probed_tables"] == before + 1,
+            f"the tables at {what}'s shape launched no probed_tables")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    require(bool(torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale)),
+            f"probed_tables at {what}'s shape: max_abs_err {err:.3g} over "
+            f"a largest entry of {scale:.4g}")
+    cells = b * nprobe
+    read, written, flops = tables_roofline.work(cells=cells, b=b, p=p, m=m,
+                                                d=d, c=C)
+    bound_ = bound(read + written, flops)
+    shape = (f"B={b}, nprobe={nprobe}, D={d}, C={C}, sub={sub}, P={p}: "
+             f"{cells} cells")
+    log(f"probed_tables at {what}'s shape ({shape}): max_abs_err {err:.3g} "
+        f"(largest entry {scale:.4g})  bound {bound_[0]:.4f} ms "
+        f"({bound_[1]})")
+    del got, want
+    return {"label": f"probed_tables at {what}'s shape", "shape": shape,
+            "err": err, "bound": bound_, "reps": 20,
+            "call": lambda: bucketed.probed_tables(q, cents, books, probed),
+            "plain": lambda: bucketed.l2_tables_plain(q, cents, books,
+                                                      probed)}
+
+
+def time_tables(torch, case: dict) -> None:
+    """Adds the tables kernel's :func:`device_ms` and the plain formula's
+    CUDA-event time to ``case``."""
+    case.update(device_ms(torch, case.pop("call"), case["reps"],
+                          "probed_tables_kernel"))
+    case["plain_ms"] = cuda_ms(torch, case.pop("plain"), 3)
+    log(f"{case['label']}: kernel {case['ms']:.4f} ms device with a cold "
+        f"L2, {case['warm_ms']:.4f} ms back to back ({case['profiled']} "
+        f"launches profiled), host {case['host_ms'] * 1e3:.1f} us a call  "
+        f"plain formula {case['plain_ms']:.4f} ms  bound "
+        f"{case['bound'][0]:.4f} ms ({case['bound'][1]}): "
+        f"{100 * case['bound'][0] / case['ms']:.1f}% of it")
+
+
 def ground_truth(torch, x, q, k: int) -> np.ndarray:
     """Exact k nearest rows on the card: f32 expanded distances pick 4k
     candidates, a subtract-then-square re-score orders them."""
@@ -1496,6 +1573,8 @@ def sift_run(torch, seed: int):
             "the SIFT queries launched no adc_scan")
     require(launches["bucketed_topk"] > after_build["bucketed_topk"],
             "the SIFT queries launched no bucketed_topk")
+    require(launches["probed_tables"] > after_build["probed_tables"],
+            "the SIFT queries launched no probed_tables")
     check_build(db, x, SIFT_P, SIFT_D, C)
 
     t0 = time.perf_counter()
@@ -3015,6 +3094,8 @@ def deep_serve(torch, q_dev, x, xh, built, gt: np.ndarray):
     served = dict(_kernels.LAUNCHES)
     require(served["bucketed_topk"] > 0, "the Deep10M queries launched no "
             "bucketed_topk")
+    require(served["probed_tables"] > 0, "the Deep10M queries launched no "
+            "probed_tables")
     r_rr = recall_at(rr[1], gt)
     log(f"Deep10M DeviceIndex.query_rerank({len(qh)}, k={K_TOP}, nprobe="
         f"{DEEP_NPROBE}, rerank={RERANK}) against the {DEEP_N}-row corpus "
@@ -4293,6 +4374,23 @@ def topk_row(launches, case):
     return out
 
 
+def tables_row(launches, cases):
+    """The tables kernel's row from :func:`time_tables`: GIST1M's shape,
+    Deep10M's under ``deep10m``; ``library_ms`` the plain formula's
+    time."""
+    gist, deep = cases
+    out = row("probed_tables", "cuda", SRC_PT, REPLACES["tables"], launches,
+              max(c["err"] for c in cases), gist["ms"], gist["plain_ms"],
+              *gist["bound"], gist["by"], warm_ms=gist["warm_ms"],
+              host_ms=gist["host_ms"], shape=gist["shape"],
+              deep10m={k: deep[k] for k in ("shape", "ms", "warm_ms",
+                                            "host_ms", "plain_ms")}
+              | {"bound_ms": deep["bound"][0],
+                 "bound_by": deep["bound"][1]})
+    out["library_ms"] = gist["plain_ms"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -4417,6 +4515,10 @@ def main() -> None:
     for cases, case in zip((b_cases, bf_cases, c_cases, cf_cases),
                            gist_cases):
         cases.append(case)
+    t_cases = [parity_tables(torch, gen, "GIST1M", GIST_NQ, GIST_NPROBE,
+                             GIST_D, GIST_M // GIST_D, GIST_P),
+               parity_tables(torch, gen, "Deep10M", DEEP_NQ, DEEP_NPROBE,
+                             DEEP_D, DEEP_M // DEEP_D, DEEP_P)]
     log(f"phase 1 (kernel parity): {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
@@ -4472,6 +4574,8 @@ def main() -> None:
     for case in a_cases + [lookup]:
         time_scan(torch, case)
     time_topk(torch, topk_case)
+    for case in t_cases:
+        time_tables(torch, case)
     lloyd_cases = b_cases + c_cases + bf_cases + cf_cases
     for case in (e[5] for e in lloyd_cases if e[5]):
         case.update(pass_device_ms(torch, case.pop("launch")))
@@ -4488,8 +4592,8 @@ def main() -> None:
             f"{case['ms']:.4f} ms device a launch ({case['calls']} "
             f"profiled), bound {case['bound'][0]:.4f} ms "
             f"({case['bound'][1]})")
-    log(f"phase 10 (K-A, the top-k, cluster-sum pass and assignment "
-        f"times): "
+    log(f"phase 10 (K-A, the top-k, the tables, cluster-sum pass and "
+        f"assignment times): "
         f"{time.perf_counter() - t0:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -4527,6 +4631,7 @@ def main() -> None:
                  max([e[0] for e in lloyd_cases] + [sort_err]),
                  b_cases[1][5]),
         topk_row(launches["bucketed_topk"], topk_case),
+        tables_row(launches["probed_tables"], t_cases),
     ]
     log(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,10 +44,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: fast_math variants of K-B and K-C count under their own keys, and the
 #: cluster-sum pass that follows each of their rounds under
 #: ``cluster_sums``, once a pass whichever route ran; the bucketed top-k's
-#: two kernels under ``bucketed_topk``, once a pair.
+#: two kernels under ``bucketed_topk``, once a pair; the probed
+#: partitions' L2 tables under ``probed_tables``.
 LAUNCHES = {"adc_scan": 0, "adc_lookup": 0, "lloyd_round": 0,
             "lloyd_grouped": 0, "lloyd_round_fast": 0,
-            "lloyd_grouped_fast": 0, "cluster_sums": 0, "bucketed_topk": 0}
+            "lloyd_grouped_fast": 0, "cluster_sums": 0, "bucketed_topk": 0,
+            "probed_tables": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: The compiler's output of the build this process made (``None`` when the
@@ -155,6 +157,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fdb_bucketed_topk.restype = i
     lib.fdb_bucketed_topk_scratch.argtypes = [i, i, i]
     lib.fdb_bucketed_topk_scratch.restype = ctypes.c_longlong
+    lib.fdb_probed_tables.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.fdb_probed_tables.restype = i
 
 
 def load() -> ctypes.CDLL:

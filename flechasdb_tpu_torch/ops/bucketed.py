@@ -6,7 +6,8 @@ minor, so the scan reads codes coalesced along it) and a query touches
 only its ``nprobe`` buckets:
 
 1. coarse scores and a stable ascending sort pick ``probed [B, nprobe]``,
-2. ADC tables for the probed partitions only, ``[B, nprobe, D, C]``,
+2. ADC tables for the probed partitions only, ``[B, nprobe, D, C]`` (L2
+   on the card: one hand-written kernel, :func:`l2_tables_kernel`),
 3. the bucket scan (kernel K-A on the card, :mod:`.scan`), then the
    attribute filter's row mask where one is given,
 4. the k best of ``[B, nprobe·L]`` in a stable sort's order
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..host import bucket_len
 from ..utils.profiling import annotate, count
 from .adc import _dot_tables, _rotated, coarse_scores
@@ -84,26 +86,123 @@ def probed_tables(q: torch.Tensor, centroids: torch.Tensor,
                   rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ADC tables ``[B, nprobe, D, C]`` for the probed partitions only.
 
-    L2: ``‖(q − centroid_p)_d − cb[d, c]‖²``, clamped at 0, the residual
-    rotated by the OPQ ``rotation`` first when given (the codes live in
-    the rotated space). Dot: the :func:`.adc._dot_tables` decomposition,
-    its per-probe scalars gathered from ``coarse [B, P]`` when given."""
+    L2: ``‖(q − centroid_p)_d − cb[d, c]‖²``, the residual rotated by the
+    OPQ ``rotation`` first when given (the codes live in the rotated
+    space): on a CUDA tensor the kernel of ``csrc/probed_tables.cu``
+    (:func:`l2_tables_kernel`), else :func:`l2_tables_plain`. Dot: the
+    :func:`.adc._dot_tables` decomposition, its per-probe scalars gathered
+    from ``coarse [B, P]`` when given. The counters ``tables.kernel`` and
+    ``tables.plain`` count the cells (B·nprobe) each route took."""
     b = q.shape[0]
     nprobe = probed.shape[1]
-    d, c, sub = codebooks.shape
     if metric == "dot":
+        count("tables.plain", b * nprobe)
         if coarse is not None:
             cent_scores = coarse.gather(1, probed)
         else:
             pc = centroids[probed]                          # [B, nprobe, M]
             cent_scores = -torch.einsum("bm,bjm->bj", q, pc)
         return _dot_tables(q, codebooks, cent_scores, rotation)
+    if q.device.type == "cuda":
+        count("tables.kernel", b * nprobe)
+        return l2_tables_kernel(q, centroids, codebooks, probed, rotation)
+    count("tables.plain", b * nprobe)
+    return l2_tables_plain(q, centroids, codebooks, probed, rotation)
+
+
+@full_f32()
+def l2_tables_plain(q: torch.Tensor, centroids: torch.Tensor,
+                    codebooks: torch.Tensor, probed: torch.Tensor,
+                    rotation: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The L2 tables by the expansion ``rr + cc − 2·rc``, clamped at 0 (the
+    plain version: the CPU's route, the kernel's reference)."""
+    b = q.shape[0]
+    nprobe = probed.shape[1]
+    d, c, sub = codebooks.shape
     resid = _rotated(q[:, None, :] - centroids[probed], rotation) \
         .reshape(b, nprobe, d, sub)
     rr = (resid * resid).sum(dim=-1)                        # [B, nprobe, D]
     cc = (codebooks * codebooks).sum(dim=-1)                # [D, C]
     rc = torch.einsum("bjds,dcs->bjdc", resid, codebooks)
     return torch.clamp_min(rr[..., None] + cc[None, None] - 2.0 * rc, 0.0)
+
+
+def _check_tables(q, centroids, codebooks, probed, rotation) -> None:
+    """What the kernel takes: f32 ``q [B, M]``, ``centroids [P, M]`` and
+    ``codebooks [D, C, M/D]`` and int64 ``probed [B, nprobe]`` (rows may lie
+    apart, as a slice of the probe's sort gives them), one device, the
+    floats contiguous; ``rotation [M, M]`` f32."""
+    if q.ndim != 2 or centroids.ndim != 2 or codebooks.ndim != 3 \
+            or probed.ndim != 2:
+        raise ValueError(
+            f"want q [B, M], centroids [P, M], codebooks [D, C, sub] and "
+            f"probed [B, nprobe], got {tuple(q.shape)}, "
+            f"{tuple(centroids.shape)}, {tuple(codebooks.shape)}, "
+            f"{tuple(probed.shape)}")
+    b, m = q.shape
+    d, c, sub = codebooks.shape
+    if centroids.shape[1] != m or d * sub != m or probed.shape[0] != b:
+        raise ValueError(
+            f"shapes disagree: q {tuple(q.shape)}, centroids "
+            f"{tuple(centroids.shape)}, codebooks {tuple(codebooks.shape)}, "
+            f"probed {tuple(probed.shape)}")
+    if b * probed.shape[1] >= 2 ** 31 or centroids.shape[0] >= 2 ** 31:
+        raise ValueError("the kernel takes fewer than 2³¹ cells and "
+                         "partitions")
+    floats = {"q": q, "centroids": centroids, "codebooks": codebooks}
+    if rotation is not None:
+        if rotation.shape != (m, m):
+            raise ValueError(f"rotation shape {tuple(rotation.shape)} != "
+                             f"({m}, {m})")
+        floats["rotation"] = rotation
+    for name, t in {**floats, "probed": probed}.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in floats.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if probed.dtype != torch.int64:
+        raise TypeError(f"probed must be torch.int64, got {probed.dtype}")
+    if probed.numel() > probed.shape[0] and probed.stride(1) != 1:
+        raise ValueError("probed's rows must be contiguous")
+
+
+def l2_tables_kernel(q: torch.Tensor, centroids: torch.Tensor,
+                     codebooks: torch.Tensor, probed: torch.Tensor,
+                     rotation: Optional[torch.Tensor] = None,
+                     ) -> torch.Tensor:
+    """The L2 tables on the card: one launch of ``csrc/probed_tables.cu``,
+    which forms each residual from ``q`` and the gathered centroid and
+    writes ``Σ_s (r_s − cb[d, c, s])²`` once, in f32 (no clamp: the
+    difference form is ≥ 0). With a ``rotation`` the rotated residuals are
+    formed here and handed to the kernel in place of ``q``. Raises on what
+    the kernel does not take (:func:`_check_tables`)."""
+    _check_tables(q, centroids, codebooks, probed, rotation)
+    b = q.shape[0]
+    nprobe = probed.shape[1]
+    d, c, sub = codebooks.shape
+    dev = q.device
+    out = torch.empty((b, nprobe, d, c), dtype=torch.float32, device=dev)
+    g = b * nprobe
+    if g == 0:
+        return out
+    src, cent = q, centroids
+    if rotation is not None:
+        src = _rotated(q[:, None, :] - centroids[probed], rotation) \
+            .reshape(g, -1).contiguous()
+        cent = None
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        rc = lib.fdb_probed_tables(
+            src.data_ptr(), None if cent is None else cent.data_ptr(),
+            probed.data_ptr(), codebooks.data_ptr(), out.data_ptr(), g,
+            nprobe, probed.stride(0), centroids.shape[0], d, c, sub,
+            _kernels.stream_of(q))
+    _kernels.check(rc, "probed_tables")
+    _kernels.LAUNCHES["probed_tables"] += 1
+    return out
 
 
 def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,

@@ -191,7 +191,7 @@ class DeviceIndex:
     def _to_device(self, q: np.ndarray, row_mask):
         """The query batch and ``row_mask`` on this index's device."""
         with annotate("fdb.to_device"):
-            return (torch.as_tensor(np.asarray(q, np.float32),
+            return (torch.as_tensor(np.ascontiguousarray(q, np.float32),
                                     device=self.device),
                     self._row_mask(row_mask))
 
@@ -235,7 +235,8 @@ class DeviceIndex:
         whose transients fit ``hbm_budget_bytes`` (:func:`_range_limit` on
         buckets, :func:`_masked_limit` on the flat layout), each chunk
         thresholded as it arrives."""
-        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
+                             device=self.device)
         mask = self._row_mask(row_mask)
         out = []
         if self.layout == "bucketed":
@@ -337,7 +338,8 @@ class ShardedIndex:
         from .parallel.bucketed import query_bucketed_sharded
         from .parallel.query import query_sharded
 
-        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
+                             device=self.device)
         mask = self._row_mask(row_mask)
         kw = dict(mesh=self.mesh, k=k, nprobe=nprobe, metric=self.metric,
                   rotation=self.rotation)
@@ -360,7 +362,8 @@ class ShardedIndex:
         from .parallel.bucketed import range_bucketed_sharded
         from .parallel.query import range_sharded
 
-        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
+                             device=self.device)
         mask = self._row_mask(row_mask)
         kw = dict(mesh=self.mesh, nprobe=nprobe, metric=self.metric,
                   rotation=self.rotation)

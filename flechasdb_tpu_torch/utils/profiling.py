@@ -13,7 +13,8 @@ The program marks its stages with :func:`annotate` (``fdb.*`` spans:
 ``fdb.query_batch``, ``fdb.index.query``, ``fdb.probe``, ``fdb.tables``,
 ``fdb.scan``, ``fdb.topk`` ... ``fdb.build``, ``fdb.kmeans.lloyd``) and
 counts work with :func:`count` (``bucketed.slots``,
-``bucketed.real_slots``, ``tables.cells``, ``rerank.rows``). Both record
+``bucketed.real_slots``, ``tables.cells``, ``tables.kernel``,
+``tables.plain``, ``rerank.rows``). Both record
 only while a profiler collects: with none, a span or a count costs one
 check of the profiler's flag. A span is then a ``record_function``, a
 ``user_annotation`` on the same timeline as the card's kernels and the

@@ -11,7 +11,7 @@ def test_launch_counters_cover_every_route():
                                       "lloyd_round", "lloyd_grouped",
                                       "lloyd_round_fast",
                                       "lloyd_grouped_fast", "cluster_sums",
-                                      "bucketed_topk"}
+                                      "bucketed_topk", "probed_tables"}
     _kernels.LAUNCHES["lloyd_grouped"] += 3
     _kernels.reset_launches()
     assert not any(_kernels.LAUNCHES.values())

@@ -7,7 +7,8 @@ no ``record_function`` is entered and no counter moves. Under a CPU
 ``Database.query_batch`` on the masked layout emit their ``fdb.`` spans
 nested as the layers nest, and each operator of a call lies in exactly
 one leaf stage. The bucketed counters count the probed partitions' rows
-and slots, ``tables.cells`` the (query, probed partition) tables and
+and slots, ``tables.cells`` the (query, probed partition) tables (and
+``tables.plain``, the formula's share of them on the CPU),
 ``rerank.rows`` the rerank's candidates that hold a row, the build emits
 one seeding span a fit and one sync span a Lloyd round, and nothing the
 program returns changes under a profiler, also at the GIST1M
@@ -217,13 +218,16 @@ def test_bucketed_counters_count_the_probed_rows_and_slots(tmp_path):
     ("gist", 1, 1000)])
 def test_tables_and_rerank_counters_count_cells_and_live_candidates(
         shape, nprobe, rerank):
-    """``tables.cells`` counts B·nprobe a call; ``rerank.rows`` the
-    candidates that hold a row: ``rerank`` a query, or fewer where its
-    probed partitions hold fewer rows. Neither moves with no profiler."""
+    """``tables.cells`` counts B·nprobe a call, and on the CPU all of them
+    go to ``tables.plain`` (``tables.kernel`` counts the card's route);
+    ``rerank.rows`` the candidates that hold a row: ``rerank`` a query, or
+    fewer where its probed partitions hold fewer rows. None moves with no
+    profiler."""
     index, x, q = _bucketed() if shape == "blobs" else _gist()
     index.query_rerank(q, x, k=K, nprobe=nprobe, rerank=rerank)
-    assert profiling.counters().get("tables.cells", 0) == 0
-    assert profiling.counters().get("rerank.rows", 0) == 0
+    for name in ("tables.cells", "tables.plain", "tables.kernel",
+                 "rerank.rows"):
+        assert profiling.counters().get(name, 0) == 0
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU]):
             index.query_rerank(q, x, k=K, nprobe=nprobe, rerank=rerank)
@@ -231,6 +235,8 @@ def test_tables_and_rerank_counters_count_cells_and_live_candidates(
     held = counts[_probed(index, q, nprobe)].sum(dim=1)
     got = profiling.counters()
     assert got["tables.cells"] == 2 * len(q) * nprobe
+    assert got["tables.plain"] == got["tables.cells"]
+    assert got.get("tables.kernel", 0) == 0
     assert got["rerank.rows"] == 2 * int(held.clamp_max(rerank).sum())
     if rerank > int(counts.max()) * nprobe:
         assert got["rerank.rows"] < 2 * len(q) * rerank   # some ran dry
