@@ -1373,8 +1373,8 @@ def topk_at_main_path(torch, index, q, nprobe: int, what: str) -> dict:
     from flechasdb_tpu_torch.ops import bucketed, topk
     bk, brows = index.buckets, index.buckets.rows
     qd = torch.as_tensor(q, device="cuda")
-    vdist, _, bidx, lens = bucketed._probe_scan(
-        qd, index.centroids, index.codebooks, bk, nprobe, index.metric,
+    vdist, _, _, bidx, lens = bucketed._probe_scan(
+        qd, index.centroids, index.codebooks, bk, 0, nprobe, index.metric,
         index.rotation)
     b, _, l = vdist.shape
     vdist = vdist.reshape(b * nprobe, l)

@@ -15,6 +15,10 @@ only its ``nprobe`` buckets:
    slots), or, for range search (:func:`range_bucketed`), every candidate
    to the host.
 
+The same steps serve a mesh (:mod:`..parallel.bucketed`): they run over
+a block of buckets, all ``P`` partitions on one device or a rank's block
+of them.
+
 ``torch.topk`` promises no order among equal values, while the JAX
 package's ``lax.top_k`` breaks ties to the lower index; a stable sort
 gives the same order, which duplicated vectors make visible.
@@ -206,35 +210,47 @@ def l2_tables_kernel(q: torch.Tensor, centroids: torch.Tensor,
 
 
 def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
-                codebooks: torch.Tensor, buckets: Buckets, nprobe: int,
-                metric: str, rotation: Optional[torch.Tensor],
+                codebooks: torch.Tensor, buckets: Buckets, first: int,
+                nprobe: int, metric: str, rotation: Optional[torch.Tensor],
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                           torch.Tensor]:
-    """Steps 1–3: ``(vdist [B, nprobe, L], probed [B, nprobe], bidx
-    [B·nprobe] int32, lens [B·nprobe] int32)``, the probed buckets and
-    their lengths flat as K-A takes them; K-A writes ``+inf`` in the pad
-    slots."""
+                           torch.Tensor, torch.Tensor]:
+    """Steps 1–3 over ``buckets``, a block that holds partitions ``[first,
+    first + Pl)`` (all ``P`` of them on one device; a rank's block of a
+    mesh, :mod:`..parallel.bucketed`): ``(vdist [B, nprobe, L], probed [B,
+    nprobe], slot [B, nprobe], bidx [B·nprobe] int32, lens [B·nprobe]
+    int32)``. ``slot`` is each probe's bucket in the block, ``bidx`` and
+    ``lens`` the buckets and lengths flat as K-A takes them; a probe the
+    block does not hold takes slot 0 and length 0, and K-A writes ``+inf``
+    past each length. The counters count the slots of the probes the block
+    holds."""
     b = q.shape[0]
     d, c, _ = codebooks.shape
-    l = buckets.codes.shape[2]
+    pl, _, l = buckets.codes.shape
 
     with annotate("fdb.probe"):
         coarse = coarse_scores(q, centroids, metric)        # [B, P]
         probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-        lens = buckets.lengths[probed]                      # [B, nprobe]
-        count("bucketed.slots", b * nprobe * l)
+        if first == 0 and pl == centroids.shape[0]:         # every partition
+            slot, held = probed, b * nprobe * l
+            lens = buckets.lengths[probed]                  # [B, nprobe]
+        else:
+            local = probed - first
+            owned = (local >= 0) & (local < pl)
+            slot, held = torch.where(owned, local, 0), owned * l
+            lens = torch.where(owned, buckets.lengths[slot], 0)
+        count("bucketed.slots", held)
         count("bucketed.real_slots", lens)
     with annotate("fdb.tables"):
         count("tables.cells", b * nprobe)
         tables = probed_tables(q, centroids, codebooks, probed, metric,
                                coarse, rotation)
     with annotate("fdb.scan"):
-        bidx = probed.reshape(-1).to(torch.int32).contiguous()
+        bidx = slot.reshape(-1).to(torch.int32).contiguous()
         lens = lens.reshape(-1).contiguous()
         vdist = adc_lookup_indexed(
             buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
             bidx, lens, d=d)                                # [B·nprobe, L]
-        return vdist.reshape(b, nprobe, l), probed, bidx, lens
+        return vdist.reshape(b, nprobe, l), probed, slot, bidx, lens
 
 
 def topk_rows(vdist: torch.Tensor, lens: torch.Tensor, bidx: torch.Tensor,
@@ -275,13 +291,24 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     ``approx`` is accepted and answered exactly, as the JAX package does
     off the TPU. ``rotation``: the OPQ rotation the codes were made in
     (K-A scans the rotated tables unchanged)."""
-    vdist, probed, bidx, lens = _probe_scan(q, centroids, codebooks,
-                                            buckets, nprobe, metric,
-                                            rotation)
+    return _query_block(q, centroids, codebooks, buckets, row_mask, 0, k=k,
+                        nprobe=nprobe, metric=metric, rotation=rotation)
+
+
+def _query_block(q: torch.Tensor, centroids: torch.Tensor,
+                 codebooks: torch.Tensor, buckets: Buckets,
+                 row_mask: Optional[torch.Tensor], first: int, *, k: int,
+                 nprobe: int, metric: str, rotation: Optional[torch.Tensor],
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`query_bucketed` over a block of buckets that starts at
+    partition ``first`` (:func:`_probe_scan`): the block's own ``k``
+    best."""
+    vdist, probed, slot, bidx, lens = _probe_scan(
+        q, centroids, codebooks, buckets, first, nprobe, metric, rotation)
     if row_mask is not None:                  # one gather and select
         with annotate("fdb.scan"):
             vdist = vdist.masked_fill(
-                ~_kept(buckets.rows[probed], row_mask), float("inf"))
+                ~_kept(buckets.rows[slot], row_mask), float("inf"))
 
     with annotate("fdb.topk"):
         dist, rows = topk_rows(vdist, lens, bidx, buckets.rows, k=k)
@@ -303,10 +330,22 @@ def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,
     length`` afterwards; here K-A takes the lengths and writes the pad
     slots' ``+inf`` itself (the keys are the same), and a pad slot's row
     is already ``-1`` in :class:`Buckets`."""
+    return _range_block(q, centroids, codebooks, buckets, row_mask, 0,
+                        nprobe=nprobe, metric=metric, rotation=rotation)
+
+
+def _range_block(q: torch.Tensor, centroids: torch.Tensor,
+                 codebooks: torch.Tensor, buckets: Buckets,
+                 row_mask: Optional[torch.Tensor], first: int, *,
+                 nprobe: int, metric: str, rotation: Optional[torch.Tensor],
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`range_bucketed` over a block of buckets that starts at
+    partition ``first`` (:func:`_probe_scan`): a probe the block does not
+    hold gives ``+inf`` keys, and rows the block's bucket 0 holds."""
     b = q.shape[0]
-    vdist, probed, _, _ = _probe_scan(q, centroids, codebooks, buckets,
-                                      nprobe, metric, rotation)
-    rows = buckets.rows[probed]                             # [B, nprobe, L]
+    vdist, probed, slot, _, _ = _probe_scan(
+        q, centroids, codebooks, buckets, first, nprobe, metric, rotation)
+    rows = buckets.rows[slot]                               # [B, nprobe, L]
     if row_mask is not None:
         drop = ~_kept(rows, row_mask)
         vdist = vdist.masked_fill(drop, float("inf"))

@@ -30,8 +30,12 @@ import torch
 
 from .host import check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
-from .ops.bucketed import bucketize, query_bucketed, range_bucketed
+from .ops.bucketed import Buckets, bucketize, query_bucketed, range_bucketed
 from .ops.distance import full_f32
+from .parallel.bucketed import (query_bucketed_sharded,
+                                range_bucketed_sharded, shard_buckets)
+from .parallel.mesh import shard_corpus, shard_mask
+from .parallel.query import query_sharded, range_sharded
 from .utils.profiling import annotate, annotated, count
 
 #: Budget for the masked scan's per-batch transients (its ADC tables are
@@ -111,11 +115,15 @@ def _host(*ts: torch.Tensor) -> tuple[np.ndarray, ...]:
         return tuple(t.cpu().numpy() for t in ts)
 
 
-class DeviceIndex:
-    """IVF-PQ index held on ``device`` (``"cuda"`` by default), ready for
-    batched queries. ``layout`` is ``"bucketed"``, ``"masked"`` or ``None``
-    (the JAX package's policy); ``rotation [M, M]`` is the OPQ rotation
-    the codes were made in."""
+class _Index:
+    """The body :class:`DeviceIndex` and :class:`ShardedIndex` share: the
+    metric, the layout policy, the uploads, the row-mask check and the
+    chunk loops of the query and of range search, on one device.
+    :class:`ShardedIndex` replaces where the data lives
+    (``_place_buckets``, ``_place_rows``, ``_place_mask``, ``_ranks``)
+    and how one chunk is answered (``_knn``, ``_candidates``)."""
+
+    _ranks = 1
 
     def __init__(self, centroids: np.ndarray, codebooks: np.ndarray,
                  codes: np.ndarray, pidx: np.ndarray,
@@ -143,48 +151,68 @@ class DeviceIndex:
             np.asarray(rotation, np.float32), device=self.device)
         self.buckets = self.codes = self.pidx = None
         if layout == "bucketed":
-            self.buckets = bucketize(np.asarray(codes, np.int32),
-                                     np.asarray(pidx, np.int32), p,
-                                     device=self.device)
+            self.buckets = self._place_buckets(bucketize(
+                np.asarray(codes, np.int32), np.asarray(pidx, np.int32), p))
         else:
-            self.codes = torch.tensor(np.asarray(codes, np.int32),
-                                      device=self.device)
-            self.pidx = torch.tensor(np.asarray(pidx, np.int32),
-                                     device=self.device)
+            self.codes, self.pidx = self._place_rows(
+                np.asarray(codes, np.int32), np.asarray(pidx, np.int32))
+
+    # Where the data lives, and how one chunk is answered: on this device.
+
+    def _place_buckets(self, buckets: Buckets) -> Buckets:
+        return Buckets(*(t.to(self.device) for t in buckets))
+
+    def _place_rows(self, codes: np.ndarray, pidx: np.ndarray):
+        return (torch.tensor(codes, device=self.device),
+                torch.tensor(pidx, device=self.device))
+
+    def _place_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        return mask
+
+    def _knn(self, qd: torch.Tensor, mask, **kw):
+        if self.buckets is not None:
+            return query_bucketed(qd, self.centroids, self.codebooks,
+                                  self.buckets, mask, **kw)
+        return query_masked_scan(qd, self.centroids, self.codebooks,
+                                 self.codes, self.pidx, mask, **kw)
+
+    def _candidates(self, qd: torch.Tensor, mask, **kw):
+        if self.buckets is not None:
+            return range_bucketed(qd, self.centroids, self.codebooks,
+                                  self.buckets, mask, **kw)
+        return range_masked_scan(qd, self.centroids, self.codebooks,
+                                 self.codes, self.pidx, mask, **kw)
 
     def _masked_batch_limit(self) -> int:
+        """:func:`_masked_limit` at the largest rank's rows, so that every
+        rank runs the same chunks."""
         return _masked_limit(tuple(self.centroids.shape),
                              tuple(self.codebooks.shape),
-                             self.codes.shape[0], self.hbm_budget_bytes,
-                             self.metric)
+                             -(-self.num_rows // self._ranks),
+                             self.hbm_budget_bytes, self.metric)
 
     def _row_mask(self, row_mask) -> Optional[torch.Tensor]:
         """A numpy or tensor ``[N]`` mask as a bool tensor on this index's
-        device (uploaded once a call)."""
+        device (uploaded once a call): whole for the bucketed layout, the
+        rows this index holds for the masked one."""
         if row_mask is None:
             return None
         mask = torch.as_tensor(row_mask, dtype=torch.bool, device=self.device)
         if mask.shape != (self.num_rows,):
             raise ValueError(f"row_mask shape {tuple(mask.shape)} != "
                              f"({self.num_rows},)")
-        return mask
+        return mask if self.buckets is not None else self._place_mask(mask)
 
     def _query(self, qd: torch.Tensor, k: int, nprobe: int, row_mask,
-               approx: bool | float,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Device ``(dists, rows, probed)``; masked batches in chunks."""
-        if self.layout == "bucketed":
-            return query_bucketed(qd, self.centroids, self.codebooks,
-                                  self.buckets, row_mask, k=k, nprobe=nprobe,
-                                  metric=self.metric, approx=approx,
-                                  rotation=self.rotation)
+        kw = dict(k=k, nprobe=nprobe, metric=self.metric,
+                  rotation=self.rotation)
+        if self.buckets is not None:
+            return self._knn(qd, row_mask, **kw)
         with annotate("fdb.to_device"):
             chunks = qd.split(self._masked_batch_limit())
-        parts = [query_masked_scan(qc, self.centroids, self.codebooks,
-                                   self.codes, self.pidx, row_mask, k=k,
-                                   nprobe=nprobe, metric=self.metric,
-                                   rotation=self.rotation)
-                 for qc in chunks]
+        parts = [self._knn(qc, row_mask, **kw) for qc in chunks]
         with annotate("fdb.topk"):
             return tuple(torch.cat(ts) for ts in zip(*parts))
 
@@ -204,26 +232,7 @@ class DeviceIndex:
         whose entry is False before the top-k; ``approx`` is answered
         exactly."""
         qd, mask = self._to_device(q, row_mask)
-        return _host(*self._query(qd, k, nprobe, mask, approx))
-
-    @annotated("fdb.index.query")
-    def query_rerank(self, q: np.ndarray, originals: torch.Tensor, k: int,
-                     nprobe: int, rerank: int, row_mask=None,
-                     approx: bool | float = False,
-                     ) -> tuple[np.ndarray, np.ndarray]:
-        """ADC query for the top ``rerank`` candidates, then their EXACT
-        re-scoring against ``originals [N, M]`` (on this index's device),
-        both on the device: host ``(dists [B, k], rows [B, k])``. Rows that
-        ``row_mask`` drops come out of the ADC pass at ``+inf`` and are
-        never candidates."""
-        qd, mask = self._to_device(q, row_mask)
-        adc, rows, _ = self._query(qd, rerank, nprobe, mask, approx)
-        with annotate("fdb.rerank"):
-            valid = torch.isfinite(adc)
-            count("rerank.rows", valid)
-            best = _rerank_exact(qd, rows, valid, originals, k=k,
-                                 metric=self.metric)
-        return _host(*best)
+        return _host(*self._query(qd, k, nprobe, mask))
 
     def query_range(self, q: np.ndarray, radius: float, nprobe: int,
                     row_mask=None) -> list:
@@ -238,31 +247,52 @@ class DeviceIndex:
         qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
                              device=self.device)
         mask = self._row_mask(row_mask)
+        kw = dict(nprobe=nprobe, metric=self.metric, rotation=self.rotation)
         out = []
-        if self.layout == "bucketed":
+        if self.buckets is not None:
             limit = _range_limit(nprobe, self.buckets.codes.shape[2],
                                  tuple(self.codebooks.shape),
                                  self.hbm_budget_bytes)
             for i in range(0, len(qd), limit):
-                keys, rows, _ = range_bucketed(
-                    qd[i:i + limit], self.centroids, self.codebooks,
-                    self.buckets, mask, nprobe=nprobe, metric=self.metric,
-                    rotation=self.rotation)
+                keys, rows, _ = self._candidates(qd[i:i + limit], mask, **kw)
                 out += _range_host_tail(*_host(keys, rows), radius)
             return out
         limit = self._masked_batch_limit()
         for i in range(0, len(qd), limit):
-            keys, = _host(range_masked_scan(
-                qd[i:i + limit], self.centroids, self.codebooks, self.codes,
-                self.pidx, mask, nprobe=nprobe, metric=self.metric,
-                rotation=self.rotation)[0])
+            keys, = _host(self._candidates(qd[i:i + limit], mask, **kw)[0])
             rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
                                    keys.shape)
             out += _range_host_tail(keys, rows, radius)
         return out
 
 
-class ShardedIndex:
+class DeviceIndex(_Index):
+    """IVF-PQ index held on ``device`` (``"cuda"`` by default), ready for
+    batched queries. ``layout`` is ``"bucketed"``, ``"masked"`` or ``None``
+    (the JAX package's policy); ``rotation [M, M]`` is the OPQ rotation
+    the codes were made in."""
+
+    @annotated("fdb.index.query")
+    def query_rerank(self, q: np.ndarray, originals: torch.Tensor, k: int,
+                     nprobe: int, rerank: int, row_mask=None,
+                     approx: bool | float = False,
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """ADC query for the top ``rerank`` candidates, then their EXACT
+        re-scoring against ``originals [N, M]`` (on this index's device),
+        both on the device: host ``(dists [B, k], rows [B, k])``. Rows that
+        ``row_mask`` drops come out of the ADC pass at ``+inf`` and are
+        never candidates."""
+        qd, mask = self._to_device(q, row_mask)
+        adc, rows, _ = self._query(qd, rerank, nprobe, mask)
+        with annotate("fdb.rerank"):
+            valid = torch.isfinite(adc)
+            count("rerank.rows", valid)
+            best = _rerank_exact(qd, rows, valid, originals, k=k,
+                                 metric=self.metric)
+        return _host(*best)
+
+
+class ShardedIndex(_Index):
     """IVF-PQ index sharded over a :class:`.parallel.mesh.CorpusMesh`
     (the JAX package's ``ShardedIndex``): every method is a collective
     call, made by every rank with the same arguments, and returns the same
@@ -281,109 +311,35 @@ class ShardedIndex:
                  rotation: Optional[np.ndarray] = None,
                  hbm_budget_bytes: int = HBM_BUDGET_BYTES,
                  metric: str = "l2", *, mesh) -> None:
-        from .parallel.bucketed import shard_buckets
-        from .parallel.mesh import shard_corpus
-
         self.mesh = mesh
-        self.device = mesh.device
-        self.hbm_budget_bytes = hbm_budget_bytes
-        self.metric = "dot" if check_metric(metric) == "dot" else "l2"
-        p = centroids.shape[0]
-        self.num_rows = len(codes)
-        if layout is None:
-            layout = choose_layout(p, pidx, max(len(codes), 1))
-        if layout not in LAYOUTS:
-            raise ValueError(f"unknown layout: {layout!r}")
-        self.layout = f"sharded-{layout}"
-        self.centroids = torch.tensor(
-            np.asarray(centroids, np.float32), device=self.device)
-        self.codebooks = torch.tensor(
-            np.asarray(codebooks, np.float32), device=self.device)
-        self.rotation = None if rotation is None else torch.tensor(
-            np.asarray(rotation, np.float32), device=self.device)
-        self.buckets = self.codes = self.pidx = None
-        if layout == "bucketed":
-            self.buckets = shard_buckets(mesh, bucketize(
-                np.asarray(codes, np.int32), np.asarray(pidx, np.int32), p))
-        else:
-            self.codes, self.pidx = shard_corpus(mesh, codes, pidx)
+        self._ranks = mesh.size
+        super().__init__(centroids, codebooks, codes, pidx, layout,
+                         rotation, hbm_budget_bytes, metric, mesh.device)
+        self.layout = f"sharded-{self.layout}"
 
-    def _masked_batch_limit(self) -> int:
-        """:func:`_masked_limit` at the largest block's rows, so that every
-        rank runs the same chunks."""
-        return _masked_limit(tuple(self.centroids.shape),
-                             tuple(self.codebooks.shape),
-                             -(-self.num_rows // self.mesh.size),
-                             self.hbm_budget_bytes, self.metric)
+    def _place_buckets(self, buckets: Buckets) -> Buckets:
+        return shard_buckets(self.mesh, buckets)
 
-    def _row_mask(self, row_mask) -> Optional[torch.Tensor]:
-        """The ``[N]`` mask on the device: whole for the bucketed layout,
-        this rank's block for the masked one."""
-        if row_mask is None:
-            return None
-        mask = torch.as_tensor(row_mask, dtype=torch.bool)
-        if mask.shape != (self.num_rows,):
-            raise ValueError(f"row_mask shape {tuple(mask.shape)} != "
-                             f"({self.num_rows},)")
-        if self.buckets is None:
-            from .parallel.mesh import shard_mask
-            return shard_mask(self.mesh, mask)
-        return mask.to(self.device)
+    def _place_rows(self, codes: np.ndarray, pidx: np.ndarray):
+        return shard_corpus(self.mesh, codes, pidx)
 
-    def query(self, q: np.ndarray, k: int, nprobe: int, row_mask=None,
-              approx: bool | float = False,
-              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Batched k-NN, :meth:`DeviceIndex.query`'s contract: host
-        ``(dists, rows, probed)``; ``approx`` is answered exactly."""
-        from .parallel.bucketed import query_bucketed_sharded
-        from .parallel.query import query_sharded
+    def _place_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        return shard_mask(self.mesh, mask)
 
-        qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
-                             device=self.device)
-        mask = self._row_mask(row_mask)
-        kw = dict(mesh=self.mesh, k=k, nprobe=nprobe, metric=self.metric,
-                  rotation=self.rotation)
+    def _knn(self, qd: torch.Tensor, mask, **kw):
         if self.buckets is not None:
-            return _host(*query_bucketed_sharded(
+            return query_bucketed_sharded(qd, self.centroids, self.codebooks,
+                                          self.buckets, mask, mesh=self.mesh,
+                                          **kw)
+        return query_sharded(qd, self.centroids, self.codebooks, self.codes,
+                             self.pidx, mask, mesh=self.mesh,
+                             n=self.num_rows, **kw)
+
+    def _candidates(self, qd: torch.Tensor, mask, **kw):
+        if self.buckets is not None:
+            return range_bucketed_sharded(
                 qd, self.centroids, self.codebooks, self.buckets, mask,
-                **kw))
-        limit = self._masked_batch_limit()
-        parts = [query_sharded(qd[i:i + limit], self.centroids,
-                               self.codebooks, self.codes, self.pidx, mask,
-                               n=self.num_rows, **kw)
-                 for i in range(0, len(qd), limit)]
-        return _host(*(torch.cat(ts) for ts in zip(*parts)))
-
-    def query_range(self, q: np.ndarray, radius: float, nprobe: int,
-                    row_mask=None) -> list:
-        """Range search, :meth:`DeviceIndex.query_range`'s contract (one
-        ``(rows, keys)`` pair a query, ascending), in the same chunks; the
-        candidates are thresholded on the host."""
-        from .parallel.bucketed import range_bucketed_sharded
-        from .parallel.query import range_sharded
-
-        qd = torch.as_tensor(np.ascontiguousarray(q, np.float32),
-                             device=self.device)
-        mask = self._row_mask(row_mask)
-        kw = dict(mesh=self.mesh, nprobe=nprobe, metric=self.metric,
-                  rotation=self.rotation)
-        out = []
-        if self.buckets is not None:
-            limit = _range_limit(nprobe, self.buckets.codes.shape[2],
-                                 tuple(self.codebooks.shape),
-                                 self.hbm_budget_bytes)
-            for i in range(0, len(qd), limit):
-                keys, rows, _ = range_bucketed_sharded(
-                    qd[i:i + limit], self.centroids, self.codebooks,
-                    self.buckets, mask, **kw)
-                out += _range_host_tail(*_host(keys, rows), radius)
-            return out
-        limit = self._masked_batch_limit()
-        for i in range(0, len(qd), limit):
-            keys, = _host(range_sharded(
-                qd[i:i + limit], self.centroids, self.codebooks, self.codes,
-                self.pidx, mask, n=self.num_rows, **kw)[0])
-            rows = np.broadcast_to(np.arange(keys.shape[1], dtype=np.int32),
-                                   keys.shape)
-            out += _range_host_tail(keys, rows, radius)
-        return out
+                mesh=self.mesh, **kw)
+        return range_sharded(qd, self.centroids, self.codebooks, self.codes,
+                             self.pidx, mask, mesh=self.mesh,
+                             n=self.num_rows, **kw)

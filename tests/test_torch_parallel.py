@@ -569,6 +569,42 @@ def test_mesh_helpers(world_of_one):
                     mesh=world_of_one, n=5)
 
 
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_world_of_one_bucketed_counts_and_answers_as_one_device(
+        world_of_one, metric):
+    """A world-of-one ``ShardedIndex(layout="bucketed")`` runs the
+    single-device pipeline over its one block: under a profiler it counts
+    the same ``bucketed.slots``, ``bucketed.real_slots`` and
+    ``tables.cells`` as a ``DeviceIndex`` on the same arrays, and returns
+    the same arrays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flechasdb_tpu_torch.serving import DeviceIndex, ShardedIndex
+    from flechasdb_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(35)
+    args = list(_index(rng, 600, 32, 13, 4, 16).values())
+    q = rng.standard_normal((5, 32)).astype(np.float32)
+    mask = rng.random(600) < 0.7
+    one = DeviceIndex(*args, layout="bucketed", metric=metric, device="cpu")
+    sharded = ShardedIndex(*args, layout="bucketed", metric=metric,
+                           mesh=world_of_one)
+    counted, answers = [], []
+    for index in (one, sharded):
+        profiling.reset_counters()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                answers.append(index.query(q, k=6, nprobe=4, row_mask=mask))
+            counted.append(profiling.counters())
+        finally:
+            profiling.reset_counters()
+    assert counted[0]["bucketed.slots"] == 5 * 4 * one.buckets.codes.shape[2]
+    for name in ("bucketed.slots", "bucketed.real_slots", "tables.cells"):
+        assert counted[1].get(name) == counted[0][name], name
+    for got, want in zip(answers[1], answers[0], strict=True):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_parallel_imports_neither_jax_nor_the_jax_package(tmp_path):
     """A fresh interpreter: the port's parallel package and a world-1
     sharded build leave jax and flechasdb_tpu out of ``sys.modules``."""
