@@ -17,8 +17,8 @@ Each C entry point takes ``c_void_p`` pointers and stream, launches on
 the current device (the wrapper selects its tensors' device with
 ``torch.cuda.device``, which restores the caller's on leaving) and
 returns ``cudaGetLastError()``; :func:`check` raises on anything but 0.
-:data:`LAUNCHES` counts each wrapper's launches, so a run can show that
-the main path went through the kernels.
+:data:`LAUNCHES` counts each wrapper's launches (:func:`launched`), so a
+run can show that the main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -56,11 +57,39 @@ _lib: Optional[ctypes.CDLL] = None
 #: library was already built).
 build_log: Optional[str] = None
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
+#: The record :func:`recording` collects this thread's launches into.
+_RECORDING = threading.local()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launched(name: str, n: int = 1) -> None:
+    """Adds ``n`` launches of ``name`` to :data:`LAUNCHES`, or, inside
+    :func:`recording` on this thread, to its record instead."""
+    record = getattr(_RECORDING, "launches", None)
+    if record is not None:
+        record[name] = record.get(name, 0) + n
+        return
+    with _launch_lock:
+        LAUNCHES[name] += n
+
+
+@contextmanager
+def recording():
+    """Collects the launches this thread counts inside (:func:`launched`)
+    into the dict it yields, ``{name: n}``, and adds none of them to
+    :data:`LAUNCHES`: what a CUDA graph's capture launched, for its replays
+    to count. Other threads count into :data:`LAUNCHES` meanwhile."""
+    record = {}
+    _RECORDING.launches = record
+    try:
+        yield record
+    finally:
+        _RECORDING.launches = None
 
 
 def sources() -> list:

@@ -17,7 +17,10 @@ only its ``nprobe`` buckets:
 
 The same steps serve a mesh (:mod:`..parallel.bucketed`): they run over
 a block of buckets, all ``P`` partitions on one device or a rank's block
-of them.
+of them. Each step is a stage that a runner runs: :func:`eager` runs it
+op by op inside its ``fdb.`` span; the graph route of
+:class:`..serving.DeviceIndex` captures the same stages as CUDA graphs
+and replays each inside the same span.
 
 ``torch.topk`` promises no order among equal values, while the JAX
 package's ``lax.top_k`` breaks ties to the lower index; a stable sort
@@ -205,52 +208,89 @@ def l2_tables_kernel(q: torch.Tensor, centroids: torch.Tensor,
             nprobe, probed.stride(0), centroids.shape[0], d, c, sub,
             _kernels.stream_of(q))
     _kernels.check(rc, "probed_tables")
-    _kernels.LAUNCHES["probed_tables"] += 1
+    _kernels.launched("probed_tables")
     return out
+
+
+def eager(span: str, fn, *args):
+    """Runs one stage of the pipeline, ``fn(*args)``, op by op inside the
+    span ``span``. The stage runner of every call but those of serving's
+    graph route (:class:`..serving.DeviceIndex`), whose runner captures
+    each stage into a CUDA graph and replays it inside the same span."""
+    with annotate(span):
+        return fn(*args)
+
+
+def _probe(q: torch.Tensor, centroids: torch.Tensor, lengths: torch.Tensor,
+           first: int, nprobe: int, l: int, metric: str,
+           ) -> tuple[torch.Tensor, ...]:
+    """Step 1 over a block of ``Pl = len(lengths)`` buckets from partition
+    ``first``: ``(coarse [B, P], probed [B, nprobe], slot [B, nprobe], lens
+    [B, nprobe])``; counts the slots of the probes the block holds."""
+    b, pl = q.shape[0], lengths.shape[0]
+    coarse = coarse_scores(q, centroids, metric)            # [B, P]
+    probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+    if first == 0 and pl == centroids.shape[0]:             # every partition
+        slot, held = probed, b * nprobe * l
+        lens = lengths[probed]                              # [B, nprobe]
+    else:
+        local = probed - first
+        owned = (local >= 0) & (local < pl)
+        slot, held = torch.where(owned, local, 0), owned * l
+        lens = torch.where(owned, lengths[slot], 0)
+    count("bucketed.slots", held)
+    count("bucketed.real_slots", lens)
+    return coarse, probed, slot, lens
+
+
+def _tables(q: torch.Tensor, centroids: torch.Tensor,
+            codebooks: torch.Tensor, probed: torch.Tensor, metric: str,
+            coarse: torch.Tensor, rotation: Optional[torch.Tensor],
+            ) -> torch.Tensor:
+    """Step 2: :func:`probed_tables`, its cells counted."""
+    count("tables.cells", probed.numel())
+    return probed_tables(q, centroids, codebooks, probed, metric, coarse,
+                         rotation)
+
+
+def _scan(bcodes: torch.Tensor, tables: torch.Tensor, slot: torch.Tensor,
+          lens: torch.Tensor, d: int,
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 3, K-A over the probed buckets: ``(vdist [B, nprobe, L], bidx
+    [B·nprobe] int32, lens [B·nprobe] int32)``."""
+    b, nprobe = slot.shape
+    bidx = slot.reshape(-1).to(torch.int32).contiguous()
+    lens = lens.reshape(-1).contiguous()
+    vdist = adc_lookup_indexed(
+        bcodes, tables.reshape(b * nprobe, -1).contiguous(), bidx, lens,
+        d=d)                                                # [B·nprobe, L]
+    return vdist.reshape(b, nprobe, bcodes.shape[2]), bidx, lens
 
 
 def _probe_scan(q: torch.Tensor, centroids: torch.Tensor,
                 codebooks: torch.Tensor, buckets: Buckets, first: int,
                 nprobe: int, metric: str, rotation: Optional[torch.Tensor],
+                run=eager,
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor, torch.Tensor]:
     """Steps 1–3 over ``buckets``, a block that holds partitions ``[first,
     first + Pl)`` (all ``P`` of them on one device; a rank's block of a
-    mesh, :mod:`..parallel.bucketed`): ``(vdist [B, nprobe, L], probed [B,
-    nprobe], slot [B, nprobe], bidx [B·nprobe] int32, lens [B·nprobe]
-    int32)``. ``slot`` is each probe's bucket in the block, ``bidx`` and
-    ``lens`` the buckets and lengths flat as K-A takes them; a probe the
-    block does not hold takes slot 0 and length 0, and K-A writes ``+inf``
-    past each length. The counters count the slots of the probes the block
+    mesh, :mod:`..parallel.bucketed`), each step a stage that ``run``
+    runs (:func:`eager`): ``(vdist [B, nprobe, L], probed [B, nprobe],
+    slot [B, nprobe], bidx [B·nprobe] int32, lens [B·nprobe] int32)``.
+    ``slot`` is each probe's bucket in the block, ``bidx`` and ``lens``
+    the buckets and lengths flat as K-A takes them; a probe the block
+    does not hold takes slot 0 and length 0, and K-A writes ``+inf`` past
+    each length. The counters count the slots of the probes the block
     holds."""
-    b = q.shape[0]
-    d, c, _ = codebooks.shape
-    pl, _, l = buckets.codes.shape
-
-    with annotate("fdb.probe"):
-        coarse = coarse_scores(q, centroids, metric)        # [B, P]
-        probed = torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
-        if first == 0 and pl == centroids.shape[0]:         # every partition
-            slot, held = probed, b * nprobe * l
-            lens = buckets.lengths[probed]                  # [B, nprobe]
-        else:
-            local = probed - first
-            owned = (local >= 0) & (local < pl)
-            slot, held = torch.where(owned, local, 0), owned * l
-            lens = torch.where(owned, buckets.lengths[slot], 0)
-        count("bucketed.slots", held)
-        count("bucketed.real_slots", lens)
-    with annotate("fdb.tables"):
-        count("tables.cells", b * nprobe)
-        tables = probed_tables(q, centroids, codebooks, probed, metric,
-                               coarse, rotation)
-    with annotate("fdb.scan"):
-        bidx = slot.reshape(-1).to(torch.int32).contiguous()
-        lens = lens.reshape(-1).contiguous()
-        vdist = adc_lookup_indexed(
-            buckets.codes, tables.reshape(b * nprobe, d * c).contiguous(),
-            bidx, lens, d=d)                                # [B·nprobe, L]
-        return vdist.reshape(b, nprobe, l), probed, slot, bidx, lens
+    coarse, probed, slot, lens = run(
+        "fdb.probe", _probe, q, centroids, buckets.lengths, first, nprobe,
+        buckets.codes.shape[2], metric)
+    tables = run("fdb.tables", _tables, q, centroids, codebooks, probed,
+                 metric, coarse, rotation)
+    vdist, bidx, lens = run("fdb.scan", _scan, buckets.codes, tables, slot,
+                            lens, codebooks.shape[0])
+    return vdist, probed, slot, bidx, lens
 
 
 def topk_rows(vdist: torch.Tensor, lens: torch.Tensor, bidx: torch.Tensor,
@@ -295,24 +335,36 @@ def query_bucketed(q: torch.Tensor, centroids: torch.Tensor,
                         nprobe=nprobe, metric=metric, rotation=rotation)
 
 
+def _masked(vdist: torch.Tensor, brows: torch.Tensor, slot: torch.Tensor,
+            row_mask: torch.Tensor) -> torch.Tensor:
+    """``+inf`` at the slots whose rows ``row_mask`` drops (one gather and
+    select)."""
+    return vdist.masked_fill(~_kept(brows[slot], row_mask), float("inf"))
+
+
+def _topk(vdist: torch.Tensor, lens: torch.Tensor, bidx: torch.Tensor,
+          brows: torch.Tensor, probed: torch.Tensor, k: int,
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 4: :func:`topk_rows`, and the probes as int32."""
+    dist, rows = topk_rows(vdist, lens, bidx, brows, k=k)
+    return dist, rows, probed.to(torch.int32)
+
+
 def _query_block(q: torch.Tensor, centroids: torch.Tensor,
                  codebooks: torch.Tensor, buckets: Buckets,
                  row_mask: Optional[torch.Tensor], first: int, *, k: int,
                  nprobe: int, metric: str, rotation: Optional[torch.Tensor],
+                 run=eager,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`query_bucketed` over a block of buckets that starts at
-    partition ``first`` (:func:`_probe_scan`): the block's own ``k``
-    best."""
+    partition ``first`` (:func:`_probe_scan`), each stage run by ``run``:
+    the block's own ``k`` best."""
     vdist, probed, slot, bidx, lens = _probe_scan(
-        q, centroids, codebooks, buckets, first, nprobe, metric, rotation)
-    if row_mask is not None:                  # one gather and select
-        with annotate("fdb.scan"):
-            vdist = vdist.masked_fill(
-                ~_kept(buckets.rows[slot], row_mask), float("inf"))
-
-    with annotate("fdb.topk"):
-        dist, rows = topk_rows(vdist, lens, bidx, buckets.rows, k=k)
-        return dist, rows, probed.to(torch.int32)
+        q, centroids, codebooks, buckets, first, nprobe, metric, rotation,
+        run)
+    if row_mask is not None:
+        vdist = run("fdb.scan", _masked, vdist, buckets.rows, slot, row_mask)
+    return run("fdb.topk", _topk, vdist, lens, bidx, buckets.rows, probed, k)
 
 
 def range_bucketed(q: torch.Tensor, centroids: torch.Tensor,

@@ -272,7 +272,7 @@ def _launch_sums(x: torch.Tensor, idx: torch.Tensor, b: int, n: int, k: int,
                 counts.data_ptr(), iwork.data_ptr(), fwork.data_ptr(), b, n,
                 k, m, g, x.shape[-1], int(fast_math), _kernels.stream_of(x))
     _kernels.check(rc, "cluster_sums")
-    _kernels.LAUNCHES["cluster_sums"] += 1
+    _kernels.launched("cluster_sums")
     return sums, counts
 
 
@@ -459,7 +459,7 @@ def _assign_grouped(xg: torch.Tensor, centroids: torch.Tensor,
             xg.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
             idx.data_ptr(), b, gg, n, k, m, _kernels.stream_of(xg))
     _kernels.check(rc, "lloyd_grouped")
-    _kernels.LAUNCHES["lloyd_grouped"] += 1
+    _kernels.launched("lloyd_grouped")
     return idx
 
 
@@ -562,7 +562,7 @@ def _assign_fast(x: torch.Tensor, centroids: torch.Tensor,
             ccp.data_ptr(), idx.data_ptr(), b, n, k, m, tiling.kp, tiling.mp,
             tiling.chunk, tiling.stages, _kernels.stream_of(x))
     _kernels.check(rc, "lloyd_round_fast")
-    _kernels.LAUNCHES["lloyd_round_fast"] += 1
+    _kernels.launched("lloyd_round_fast")
     return idx, cs, ccp
 
 
@@ -668,7 +668,7 @@ def _assign_grouped_fast(xg: torch.Tensor, centroids: torch.Tensor,
             ccp.data_ptr(), idx.data_ptr(), b, gg, n, k, m, tiling.kp,
             tiling.stages, _kernels.stream_of(xg))
     _kernels.check(rc, "lloyd_grouped_fast")
-    _kernels.LAUNCHES["lloyd_grouped_fast"] += 1
+    _kernels.launched("lloyd_grouped_fast")
     return idx, cs, ccp
 
 
@@ -702,5 +702,5 @@ def lloyd_round(x: torch.Tensor, centroids: torch.Tensor,
                 x.data_ptr(), centroids.data_ptr(), cc.data_ptr(),
                 idx.data_ptr(), b, n, k, m, int(vec), _kernels.stream_of(x))
         _kernels.check(rc, "lloyd_round")
-        _kernels.LAUNCHES["lloyd_round"] += 1
+        _kernels.launched("lloyd_round")
     return (idx, *_launch_sums(x, idx, b, n, k, m, 1, fast_math))

@@ -115,7 +115,7 @@ def _launch(bcodes: torch.Tensor, ftab: torch.Tensor, bidx: torch.Tensor,
             g, rows, l, d, dc // d, int(rows != d),
             _kernels.stream_of(bcodes))
     _kernels.check(rc, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.launched(name)
     return out
 
 

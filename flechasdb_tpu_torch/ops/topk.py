@@ -104,7 +104,7 @@ def _launch(vdist, lengths, bidx, brows, nprobe: int, kk: int,
             flat_idx.data_ptr(), rows.data_ptr(), b, nprobe, l, kk,
             _kernels.stream_of(vdist))
     _kernels.check(rc, "bucketed_topk")
-    _kernels.LAUNCHES["bucketed_topk"] += 1
+    _kernels.launched("bucketed_topk")
     return dist, flat_idx, rows
 
 

@@ -19,24 +19,40 @@ every candidate on the host. An OPQ ``rotation`` is uploaded once and
 rotates every query's tables (:mod:`.ops.adc`, :mod:`.ops.bucketed`).
 :class:`ShardedIndex` serves both layouts over a mesh of ranks
 (:mod:`.parallel`).
+
+The graph route (:class:`_Graphs`): on a CUDA device, a
+:class:`DeviceIndex` with the bucketed layout answers a query or a
+reranked query without a ``row_mask`` by replaying CUDA graphs, one a
+stage of the pipeline (``fdb.probe``, ``fdb.tables``, ``fdb.scan``,
+``fdb.topk``, ``fdb.rerank``), once the call's shape has been seen
+before; every other call runs the same stages op by op.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 
+from . import _kernels
 from .host import check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
-from .ops.bucketed import Buckets, bucketize, query_bucketed, range_bucketed
+from .ops.bucketed import (Buckets, _query_block, bucketize, eager,
+                           range_bucketed)
 from .ops.distance import full_f32
 from .parallel.bucketed import (query_bucketed_sharded,
                                 range_bucketed_sharded, shard_buckets)
 from .parallel.mesh import shard_corpus, shard_mask
 from .parallel.query import query_sharded, range_sharded
-from .utils.profiling import annotate, annotated, count
+from .utils.profiling import annotate, annotated, count, recording
+
+#: The most call shapes a :class:`DeviceIndex` keeps CUDA graphs for, and
+#: the most it remembers as seen once; least recently used out.
+GRAPH_KEYS = 4
 
 #: Budget for the masked scan's per-batch transients (its ADC tables are
 #: ``[B, P, D, C]`` f32: ~8 GB at the SIFT shape and B=1000).
@@ -110,9 +126,126 @@ def _rerank_exact(q: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
     return best.values[:, :k], rows.gather(1, best.indices[:, :k])
 
 
+def _rerank(q: torch.Tensor, adc: torch.Tensor, rows: torch.Tensor,
+            x: torch.Tensor, k: int, metric: str,
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rerank stage: the ADC pass's candidates that hold a row (counted
+    as ``rerank.rows``), exactly re-scored by :func:`_rerank_exact`."""
+    valid = torch.isfinite(adc)
+    count("rerank.rows", valid)
+    return _rerank_exact(q, rows, valid, x, k=k, metric=metric)
+
+
 def _host(*ts: torch.Tensor) -> tuple[np.ndarray, ...]:
     with annotate("fdb.to_host"):       # where the host waits for the card
         return tuple(t.cpu().numpy() for t in ts)
+
+
+class _Stage(NamedTuple):
+    """A stage captured as a CUDA graph: its span, the graph, the tensors
+    it reads and writes (held for the graph's life), and the counts and
+    kernel launches its capture recorded."""
+    span: str
+    graph: torch.cuda.CUDAGraph
+    held: tuple
+    counts: list
+    launches: dict
+
+
+class _Graphs:
+    """The graph route of a :class:`DeviceIndex` on a CUDA device with the
+    bucketed layout. A call's key is its batch's shape and what else fixes
+    its shapes and inputs (the index's metric and rotation are the same
+    for every key). A key's first call runs op by op; at its next call,
+    unless a profiler collects, each stage of its pipeline is captured
+    into a CUDA graph of its own, in one memory pool, in full f32, from a
+    static batch; then that call and every later one copies the batch in,
+    replays each stage's graph inside its span and copies the results
+    out, all under the index's lock, so that two threads never share a
+    key's buffers; a capture holds the lock too, so the index's other
+    graph-route calls wait for it. A replay makes the counts and the
+    kernel launches its capture recorded, on this thread alone
+    (:func:`.utils.profiling.recording`, :func:`._kernels.recording`; the
+    counts on the static tensors, after their stage), so the counters
+    and ``_kernels.LAUNCHES`` read as the op-by-op path makes them, and
+    another thread's launches during a capture count as it makes them.
+    At most :data:`GRAPH_KEYS` keys hold graphs; ``captures`` counts the
+    keys captured."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._lock = threading.Lock()
+        self._graphs = OrderedDict()    # key → (batch, stages, outputs)
+        self._seen = OrderedDict()      # keys called once
+        self.captures = 0               # keys captured, evicted ones too
+
+    def replay(self, key, q: np.ndarray, pipeline) -> Optional[tuple]:
+        """The host results of ``key``'s graphs on the batch ``q``
+        (captured from ``pipeline`` now if the key was seen before), or
+        ``None`` where the call runs op by op."""
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                if key not in self._seen or _profiler_enabled():
+                    return None
+                del self._seen[key]
+                graph = self._graphs[key] = self._capture(np.shape(q),
+                                                          pipeline)
+                self.captures += 1
+                if len(self._graphs) > GRAPH_KEYS:
+                    self._graphs.popitem(last=False)
+            self._graphs.move_to_end(key)
+            count("graph.replays", 1)
+            batch, stages, out = graph
+            with annotate("fdb.to_device"):
+                batch.copy_(torch.as_tensor(
+                    np.ascontiguousarray(q, np.float32)))
+            for stage in stages:
+                with annotate(stage.span):
+                    stage.graph.replay()
+                    for name, n in stage.counts:
+                        count(name, n)
+                for name, n in stage.launches.items():
+                    _kernels.launched(name, n)
+            return _host(*out)
+
+    def seen(self, key) -> None:
+        """Notes a call of ``key`` answered op by op."""
+        with self._lock:
+            self._seen[key] = None
+            self._seen.move_to_end(key)
+            if len(self._seen) > GRAPH_KEYS:
+                self._seen.popitem(last=False)
+
+    def _capture(self, shape: tuple, pipeline) -> tuple:
+        """``(batch, stages, outputs)``: ``pipeline(batch, run)`` with
+        ``run`` capturing each stage (:func:`_graphed`), the first into a
+        memory pool of its own and the rest into the first's, from a
+        static ``batch`` of ``shape``."""
+        batch = torch.empty(shape, dtype=torch.float32, device=self.device)
+        stages = []
+
+        def run(span: str, fn, *args):
+            with recording() as counts, _kernels.recording() as launches:
+                graph, out = _graphed(fn, args, self.device, stages[0].graph
+                                      .pool() if stages else None)
+            stages.append(_Stage(span, graph, (args, out), counts, launches))
+            return out
+
+        return batch, stages, pipeline(batch, run)
+
+
+def _graphed(fn, args: tuple, device: torch.device, pool,
+             ) -> tuple[torch.cuda.CUDAGraph, object]:
+    """``(graph, outputs)``: ``fn(*args)`` captured on ``device`` into a
+    CUDA graph that allocates from the memory pool ``pool`` (a new one
+    where ``None``), in full f32; no other thread's calls are held to the
+    capture's rules."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), full_f32(), torch.cuda.graph(
+            graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn(*args)
+    return graph, out
 
 
 class _Index:
@@ -124,6 +257,8 @@ class _Index:
     and how one chunk is answered (``_knn``, ``_candidates``)."""
 
     _ranks = 1
+    #: The graph route (:class:`_Graphs`), where the index takes it.
+    _graphs: Optional[_Graphs] = None
 
     def __init__(self, centroids: np.ndarray, codebooks: np.ndarray,
                  codes: np.ndarray, pidx: np.ndarray,
@@ -169,10 +304,12 @@ class _Index:
     def _place_mask(self, mask: torch.Tensor) -> torch.Tensor:
         return mask
 
-    def _knn(self, qd: torch.Tensor, mask, **kw):
+    def _knn(self, qd: torch.Tensor, mask, run=eager, **kw):
+        """One chunk's ``(dists, rows, probed)``; ``run`` runs the bucketed
+        pipeline's stages (the masked scan runs op by op)."""
         if self.buckets is not None:
-            return query_bucketed(qd, self.centroids, self.codebooks,
-                                  self.buckets, mask, **kw)
+            return _query_block(qd, self.centroids, self.codebooks,
+                                self.buckets, mask, 0, run=run, **kw)
         return query_masked_scan(qd, self.centroids, self.codebooks,
                                  self.codes, self.pidx, mask, **kw)
 
@@ -204,17 +341,38 @@ class _Index:
         return mask if self.buckets is not None else self._place_mask(mask)
 
     def _query(self, qd: torch.Tensor, k: int, nprobe: int, row_mask,
+               run=eager,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Device ``(dists, rows, probed)``; masked batches in chunks."""
         kw = dict(k=k, nprobe=nprobe, metric=self.metric,
                   rotation=self.rotation)
         if self.buckets is not None:
-            return self._knn(qd, row_mask, **kw)
+            return self._knn(qd, row_mask, run, **kw)
         with annotate("fdb.to_device"):
             chunks = qd.split(self._masked_batch_limit())
         parts = [self._knn(qc, row_mask, **kw) for qc in chunks]
         with annotate("fdb.topk"):
             return tuple(torch.cat(ts) for ts in zip(*parts))
+
+    def _answer(self, q: np.ndarray, row_mask, pipeline, *key) -> tuple:
+        """The host results of ``pipeline(qd, run, mask)`` for the batch
+        ``q``: by the graph route where the index takes it and the call has
+        no ``row_mask`` (its key: ``q``'s shape and ``key``), else op by op
+        (counted as ``graph.eager`` where the layout is bucketed on a CUDA
+        device)."""
+        graphs = self._graphs if row_mask is None and len(q) else None
+        if graphs is not None:
+            key = (np.shape(q), *key)
+            out = graphs.replay(key, q, pipeline)
+            if out is not None:
+                return out
+        if self.buckets is not None and self.device.type == "cuda":
+            count("graph.eager", 1)
+        qd, mask = self._to_device(q, row_mask)
+        out = _host(*pipeline(qd, eager, mask))
+        if graphs is not None:
+            graphs.seen(key)
+        return out
 
     def _to_device(self, q: np.ndarray, row_mask):
         """The query batch and ``row_mask`` on this index's device."""
@@ -231,8 +389,9 @@ class _Index:
         ``row_mask [N] bool`` (numpy or tensor) excludes the corpus rows
         whose entry is False before the top-k; ``approx`` is answered
         exactly."""
-        qd, mask = self._to_device(q, row_mask)
-        return _host(*self._query(qd, k, nprobe, mask))
+        def knn(qd, run, mask=None):
+            return self._query(qd, k, nprobe, mask, run)
+        return self._answer(q, row_mask, knn, k, nprobe, None)
 
     def query_range(self, q: np.ndarray, radius: float, nprobe: int,
                     row_mask=None) -> list:
@@ -270,7 +429,13 @@ class DeviceIndex(_Index):
     """IVF-PQ index held on ``device`` (``"cuda"`` by default), ready for
     batched queries. ``layout`` is ``"bucketed"``, ``"masked"`` or ``None``
     (the JAX package's policy); ``rotation [M, M]`` is the OPQ rotation
-    the codes were made in."""
+    the codes were made in. On a CUDA device with the bucketed layout it
+    takes the graph route (:class:`_Graphs`)."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        if self.device.type == "cuda" and self.buckets is not None:
+            self._graphs = _Graphs(self.device)
 
     @annotated("fdb.index.query")
     def query_rerank(self, q: np.ndarray, originals: torch.Tensor, k: int,
@@ -282,14 +447,13 @@ class DeviceIndex(_Index):
         both on the device: host ``(dists [B, k], rows [B, k])``. Rows that
         ``row_mask`` drops come out of the ADC pass at ``+inf`` and are
         never candidates."""
-        qd, mask = self._to_device(q, row_mask)
-        adc, rows, _ = self._query(qd, rerank, nprobe, mask)
-        with annotate("fdb.rerank"):
-            valid = torch.isfinite(adc)
-            count("rerank.rows", valid)
-            best = _rerank_exact(qd, rows, valid, originals, k=k,
-                                 metric=self.metric)
-        return _host(*best)
+        def reranked(qd, run, mask=None):
+            adc, rows, _ = self._query(qd, rerank, nprobe, mask, run)
+            return run("fdb.rerank", _rerank, qd, adc, rows, originals, k,
+                       self.metric)
+        return self._answer(q, row_mask, reranked, k, nprobe, rerank,
+                            id(originals), originals.data_ptr(),
+                            tuple(originals.shape), originals.dtype)
 
 
 class ShardedIndex(_Index):
@@ -326,7 +490,9 @@ class ShardedIndex(_Index):
     def _place_mask(self, mask: torch.Tensor) -> torch.Tensor:
         return shard_mask(self.mesh, mask)
 
-    def _knn(self, qd: torch.Tensor, mask, **kw):
+    def _knn(self, qd: torch.Tensor, mask, run=eager, **kw):
+        """The mesh's chunk, op by op (``run`` is always :func:`eager`
+        here: a mesh has no graph route)."""
         if self.buckets is not None:
             return query_bucketed_sharded(qd, self.centroids, self.codebooks,
                                           self.buckets, mask, mesh=self.mesh,

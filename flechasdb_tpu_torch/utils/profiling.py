@@ -14,9 +14,14 @@ The program marks its stages with :func:`annotate` (``fdb.*`` spans:
 ``fdb.scan``, ``fdb.topk`` ... ``fdb.build``, ``fdb.kmeans.lloyd``) and
 counts work with :func:`count` (``bucketed.slots``,
 ``bucketed.real_slots``, ``tables.cells``, ``tables.kernel``,
-``tables.plain``, ``rerank.rows``). Both record
-only while a profiler collects: with none, a span or a count costs one
-check of the profiler's flag. A span is then a ``record_function``, a
+``tables.plain``, ``rerank.rows``; the graph route of
+:class:`..serving.DeviceIndex`: ``graph.replays``, the batches answered
+by replaying CUDA graphs, and ``graph.eager``, the bucketed batches on
+a CUDA device that ran op by op). Both
+record only while a profiler collects: with none, a span or a count
+costs one check of the profiler's flag. A graph's capture takes the
+counts its stage makes with :func:`recording`, and its replays make
+them again. A span is then a ``record_function``, a
 ``user_annotation`` on the same timeline as the card's kernels and the
 runtime calls that launched them, so it keeps no clock of its own. A
 count of a device tensor is summed on the device, so counting never
@@ -43,6 +48,8 @@ _OFF = contextlib.nullcontext()
 _HOST_COUNTS: dict = {}
 _DEVICE_COUNTS: dict = {}
 _LOCK = threading.Lock()
+#: The list :func:`recording` collects this thread's counts into.
+_RECORDING = threading.local()
 
 
 @contextmanager
@@ -82,7 +89,11 @@ def annotated(name: str):
 def count(name: str, n) -> None:
     """Adds ``n`` to the counter ``name`` while a profiler collects: a
     host int, or an integer tensor whose sum is added on its device, with
-    no synchronization."""
+    no synchronization. Inside :func:`recording` it is recorded instead."""
+    recorded = getattr(_RECORDING, "counts", None)
+    if recorded is not None:
+        recorded.append((name, n))
+        return
     if not _profiler_enabled():
         return
     with _LOCK:
@@ -95,6 +106,20 @@ def count(name: str, n) -> None:
             acc.add_(n.sum() if n.dim() else n)
         else:
             _HOST_COUNTS[name] = _HOST_COUNTS.get(name, 0) + int(n)
+
+
+@contextmanager
+def recording():
+    """Collects the ``(name, n)`` of every :func:`count` this thread makes
+    inside, into the list it yields, and counts none of them: what a CUDA
+    graph's capture counted, for its replays to count again (a count of a
+    device tensor sums it on the device, which no graph may hold)."""
+    counts = []
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = None
 
 
 def counters() -> dict:
