@@ -49,6 +49,7 @@ from .protos import (
 )
 from .serialize import PROTOBUF_EXTENSION
 from .stored import replay_attributes_log
+from .utils.profiling import annotate, annotated
 
 #: Vectors per stored chunk (f32 rows; 4096×1536 ≈ 25 MB uncompressed).
 CHUNK_ROWS = 4096
@@ -88,19 +89,25 @@ def _exact_query(vs: np.ndarray, dev: torch.Tensor,
     """The exact top-k on ``dev``'s device, shared by every flat tier:
     host ``(dists [B, k], rows [B, k])``. On a ``mesh`` ``dev`` is this
     rank's block of the ``n`` rows, and the call is collective."""
-    q = torch.as_tensor(vs, device=dev.device)
-    if mesh is not None:
-        from .parallel.exact import exact_sharded
-        from .parallel.mesh import shard_mask
-        row_mask = None if mask is None else shard_mask(mesh, mask)
-        dists, rows = exact_sharded(q, dev, row_mask, mesh=mesh, k=k, n=n,
-                                    metric=_kernel_metric(metric))
-    else:
-        row_mask = None if mask is None else torch.as_tensor(
-            mask, device=dev.device)
-        dists, rows = exact_topk(q, dev, row_mask, k=k,
-                                 metric=_kernel_metric(metric))
-    return dists.cpu().numpy(), rows.cpu().numpy()
+    with annotate("fdb.to_device"):
+        q = torch.as_tensor(vs, device=dev.device)
+        if mask is None:
+            row_mask = None
+        elif mesh is not None:
+            from .parallel.mesh import shard_mask
+            row_mask = shard_mask(mesh, mask)
+        else:
+            row_mask = torch.as_tensor(mask, device=dev.device)
+    with annotate("fdb.exact"):
+        if mesh is not None:
+            from .parallel.exact import exact_sharded
+            dists, rows = exact_sharded(q, dev, row_mask, mesh=mesh, k=k,
+                                        n=n, metric=_kernel_metric(metric))
+        else:
+            dists, rows = exact_topk(q, dev, row_mask, k=k,
+                                     metric=_kernel_metric(metric))
+    with annotate("fdb.to_host"):       # where the host waits for the card
+        return dists.cpu().numpy(), rows.cpu().numpy()
 
 
 def _exact_range_keys(v: np.ndarray, dev: torch.Tensor, metric: str,
@@ -291,6 +298,7 @@ class FlatDatabase:
         return self.query_batch(np.asarray(v, np.float32)[None], k,
                                 where=where)[0]
 
+    @annotated("fdb.query_batch")
     def query_batch(self, vs, k: int,
                     where=None) -> List[List[FlatQueryResult]]:
         if k <= 0:
@@ -303,9 +311,10 @@ class FlatDatabase:
         dists, rows = _exact_query(vs, self._dev, mask, k=k,
                                    metric=self.metric, mesh=self._mesh,
                                    n=self.num_vectors)
-        return [_to_results(dists[b], rows[b], self.vector_ids,
-                            self._get_attr_default_none)
-                for b in range(len(vs))]
+        with annotate("fdb.results"):
+            return [_to_results(dists[b], rows[b], self.vector_ids,
+                                self._get_attr_default_none)
+                    for b in range(len(vs))]
 
     def query_range(self, v, radius: float, limit: Optional[int] = None,
                     where=None) -> List[FlatQueryResult]:
@@ -541,6 +550,7 @@ class StoredFlatDatabase:
         return self.query_batch(np.asarray(v, np.float32)[None], k,
                                 where=where)[0]
 
+    @annotated("fdb.query_batch")
     def query_batch(self, vs, k: int,
                     where=None) -> List[List[FlatQueryResult]]:
         if k <= 0:
@@ -552,8 +562,9 @@ class StoredFlatDatabase:
         mask = self._mask(where, ids)
         dists, rows = _exact_query(vs, xd, mask, k=k, metric=self.metric,
                                    mesh=self._mesh, n=self.num_vectors)
-        return [_to_results(dists[b], rows[b], ids, self.get_attribute)
-                for b in range(len(vs))]
+        with annotate("fdb.results"):
+            return [_to_results(dists[b], rows[b], ids, self.get_attribute)
+                    for b in range(len(vs))]
 
     def query_range(self, v, radius: float, limit: Optional[int] = None,
                     where=None) -> List[FlatQueryResult]:

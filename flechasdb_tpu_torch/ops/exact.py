@@ -7,7 +7,9 @@ XLA outside any Pallas kernel; here every step is a cuBLAS product in full
 f32 (:func:`.distance.full_f32`, as the JAX code pins ``HIGHEST``) and the
 fold keeps the lower index among equal keys, as ``jax.lax.top_k`` over
 ``[best, new]`` does (:func:`.adc.smallest_k`, whose order is a stable
-sort's). Tensors stay on their own device.
+sort's). Tensors stay on their own device. Each :func:`exact_topk` call
+counts its queries (``exact.queries``) and the (query, row) pairs it
+scores (``exact.pairs``) while a profiler collects.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import count
 from .adc import smallest_k
 from .distance import full_f32, sqdist
 
@@ -45,6 +48,8 @@ def exact_topk(q: torch.Tensor, x: torch.Tensor,
     """
     b = q.shape[0]
     n = x.shape[0]
+    count("exact.queries", b)
+    count("exact.pairs", b * n)
     inf = float("inf")
     best_d = torch.full((b, k), inf, dtype=torch.float32, device=q.device)
     best_i = torch.zeros((b, k), dtype=torch.int32, device=q.device)

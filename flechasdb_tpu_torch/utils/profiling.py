@@ -11,10 +11,11 @@ profiler plugin).
 
 The program marks its stages with :func:`annotate` (``fdb.*`` spans:
 ``fdb.query_batch``, ``fdb.index.query``, ``fdb.probe``, ``fdb.tables``,
-``fdb.scan``, ``fdb.topk`` ... ``fdb.build``, ``fdb.kmeans.lloyd``) and
-counts work with :func:`count` (``bucketed.slots``,
-``bucketed.real_slots``, ``tables.cells``, ``tables.kernel``,
-``tables.plain``, ``rerank.rows``; the graph route of
+``fdb.scan``, ``fdb.topk``, the flat tier's ``fdb.exact`` ...
+``fdb.build``, ``fdb.kmeans.lloyd``) and counts work with :func:`count`
+(``bucketed.slots``, ``bucketed.real_slots``, ``tables.cells``,
+``tables.kernel``, ``tables.plain``, ``rerank.rows``; the exact scan's
+``exact.queries`` and ``exact.pairs``; the graph route of
 :class:`..serving.DeviceIndex`: ``graph.replays``, the batches answered
 by replaying CUDA graphs, and ``graph.eager``, the bucketed batches on
 a CUDA device that ran op by op). Both
