@@ -110,8 +110,8 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    as the JAX package's sweep serves this configuration. Quality against
    exact ground truth on the card: recall@10, coarse@10 (the share of true
    neighbours whose partition was probed) and recall@10 after rerank.
-   Then ``Database.query_batch``, which serves from the layout the JAX
-   package's policy picks for this skewed corpus (masked), is timed with
+   Then ``Database.query_batch``, which serves from the layout the
+   card's policy picks for this skewed corpus (bucketed), is timed with
    and without rerank. 64 of the queries, from the bucketed index and
    from ``query_batch``, must agree with the CPU plain path (the policy's
    layout), with and without rerank, and a masked ``DeviceIndex`` with
@@ -155,7 +155,7 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    header's level hint, so the stream still inflates) raises
    ``VerificationFailure`` when that partition loads. SIFT: save, load, 8
    cold queries at nprobe=10 (at most 10 partitions loaded a query),
-   ``preload()`` (the policy's masked layout, no kernel) and the 1,000
+   ``preload()`` (the card's policy: buckets, K-A) and the 1,000
    queries against phase 3's ``Database.query_batch``. Golden:
    ``tests/fixtures/goldendb`` (read-only) on the card, cold and after
    ``preload``, against its recorded results. The times printed: save,
@@ -222,8 +222,8 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    C=256; cut from 100,000 rows so that the host oracle keeps the phase
    within a minute), trained on the host by the numpy oracle (no
    kernel), then phase 3's 1,000 queries at k=10, nprobe=10 through
-   ``Database.query_batch`` on the card (the policy's layout: masked for
-   this skewed corpus) and through ``DeviceIndex(layout="bucketed")``
+   ``Database.query_batch`` on the card (the card's policy's layout) and
+   through ``DeviceIndex(layout="bucketed")``
    (K-A, which must launch), both equal to the same database served on
    the CPU up to ties; 64 corpus rows must find themselves first
    (``rerank=100``); the build time and recall@10 against exact ground
@@ -311,7 +311,7 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    time printed; ``ShardedIndex`` on both layouts against phase 3's
    bucketed results for the 1000 SIFT queries, and 64 ``query_range``s
    against ``DeviceIndex.query_range``; ``preload(mesh=)`` of phase 5's
-   stored headline (bucketed) and SIFT (masked) databases and of both
+   stored headline and SIFT databases (both bucketed) and of both
    flat tiers at the SIFT corpus against phases 5 and 7; the
    ``with_mesh`` streamed build at the SIFT shape against the unsharded
    one (0 rows may differ). (b) A gloo world of two worker processes of
@@ -336,12 +336,12 @@ prints which route runs: native, or Python's zlib, hashlib and numpy.
    metric="dot")`` (K-A on the MIPS tables) at nprobe 1, 5, 10 and 50 and
    with ``query_rerank(100)`` at nprobe 5 and 10: recall@10, coarse@10
    and the batch times, rerank at nprobe 10 at least 0.9 and at least the
-   ADC recall; ``Database.query_batch`` on the policy's (masked) layout;
+   ADC recall; ``Database.query_batch`` on the policy's layout;
    64 queries of each layout, with and without rerank, and 64 range
    searches (a negative inner-product radius) on each, against the CPU
    plain path. Its tree: the root's metric ``dot``, 8 cold queries (no
    kernel) equal to the in-memory database's, ``preload()`` on buckets
-   (the policy held to bucketed by ``host.PAD_LIMIT``) and
+   (the policy held to bucketed, :func:`layout_policy`) and
    ``query_batch(1000)`` through K-A bit-equal to the in-memory database
    on buckets, ``publish_label`` → ``resolve_label`` → ``load_labeled``
    (``examples/query_metric.py``). Cosine (``examples/query_metric.py:
@@ -1589,8 +1589,8 @@ def sift_run(torch, seed: int):
     require(r_rr >= 0.9 and r_rr >= r_adc,
             f"rerank recall {r_rr} below 0.9 or the ADC recall {r_adc}")
 
-    # Database.query_batch, which serves from the layout the policy picks
-    # for this corpus (the JAX package's _choose_layout).
+    # Database.query_batch, which serves from the layout the card's policy
+    # picks for this corpus (serving.card_layout).
     counts = np.bincount(db.partition_indices, minlength=SIFT_P)
     _, qb_cold_ms = timed(lambda: db.query_batch(q, **kw))
     qb_res, qb_ms = timed(lambda: db.query_batch(q, **kw))
@@ -2068,7 +2068,7 @@ def stored_sift(ft, sift: dict, work: Path) -> None:
     n_loaded = loaded(sdb)
     _, preload_ms = timed(sdb.preload)
     layout = sdb._dev[0].layout
-    require(layout == "masked", f"the policy picked {layout}")
+    require(layout == "bucketed", f"the policy picked {layout}")
     got, qb_ms = timed(lambda: sdb.query_batch(q, K_TOP, SIFT_NPROBE))
     exact = 0
     for b in range(len(q)):
@@ -3381,8 +3381,8 @@ def sharded_serving(torch, mesh, sift: dict, total: dict):
 
 def sharded_tiers(torch, ft, mesh, head: dict, sift: dict,
                   total: dict) -> None:
-    """``preload(mesh=)`` of phase 5's stored databases (the headline one,
-    bucketed by the policy, and the SIFT one, masked) and of both flat
+    """``preload(mesh=)`` of phase 5's stored databases (the headline one
+    and the SIFT one, both bucketed by the policy) and of both flat
     tiers at the SIFT corpus (phase 7's stored one), each against its
     phase's results. The stored databases are those phases' objects,
     their partitions and chunks already read."""
@@ -3677,17 +3677,18 @@ def bit_equal(a: np.ndarray, b: np.ndarray) -> bool:
 
 @contextlib.contextmanager
 def layout_policy(layout: str):
-    """The layout policy (``host.choose_layout``) held to ``layout`` while
-    the block runs: ``host.PAD_LIMIT`` past any padding (bucketed) or 0
-    (masked), then restored. The policy picks masked for the SIFT corpus;
-    the JAX package's sweep serves it from buckets."""
-    from flechasdb_tpu_torch import host
-    before = host.PAD_LIMIT
-    host.PAD_LIMIT = float("inf") if layout == "bucketed" else 0.0
+    """The layout policy held to ``layout`` while the block runs: the
+    limits of the CPU's rule (``host.PAD_LIMIT``) and of the card's
+    (``serving.CARD_PAD_LIMIT``) past any padding (bucketed) or 0
+    (masked), then restored."""
+    from flechasdb_tpu_torch import host, serving
+    before = host.PAD_LIMIT, serving.CARD_PAD_LIMIT
+    limit = float("inf") if layout == "bucketed" else 0.0
+    host.PAD_LIMIT = serving.CARD_PAD_LIMIT = limit
     try:
         yield
     finally:
-        host.PAD_LIMIT = before
+        host.PAD_LIMIT, serving.CARD_PAD_LIMIT = before
 
 
 def database_on(ft, db, layout: str, device: str = "cuda"):

@@ -53,16 +53,22 @@ class Buckets(NamedTuple):
     lengths: torch.Tensor
 
 
+def packs(codes: np.ndarray) -> bool:
+    """Whether :func:`bucketize` packs ``codes [N, D]``: four byte codes a
+    word, when D > 1 and every code is < 256."""
+    return codes.shape[1] > 1 and int(codes.max(initial=0)) < 256
+
+
 def bucketize(codes: np.ndarray, pidx: np.ndarray, p: int,
               device: str | torch.device = "cpu") -> Buckets:
     """Host-side bucketization of ``codes [N, D]`` by partition, moved to
     ``device``, in the JAX package's ``pack="auto"`` layout: ``L`` is
     :func:`~flechasdb_tpu_torch.host.bucket_len`, and four byte codes pack
-    into a word when D > 1 and every code is < 256."""
+    into a word where :func:`packs` says so."""
     codes = np.asarray(codes)
     pidx = np.asarray(pidx)
     n, d = codes.shape
-    pack = d > 1 and int(codes.max(initial=0)) < 256
+    pack = packs(codes)
     counts = np.bincount(pidx, minlength=p)
     l = bucket_len(counts)
     bcodes = np.zeros((p, d, l), np.int32)

@@ -5,11 +5,17 @@ Two layouts, both returning the same results (global corpus rows):
 * **bucketed** (default): partition-major padded buckets scanned by
   kernel K-A; work scales with ``nprobe × L``.
 * **masked**: flat ``[N, D]`` codes and a masked full scan
-  (:func:`.ops.adc.query_masked_scan`); work scales with ``N``. The layout
-  policy (``layout=None``) is the JAX package's ``_choose_layout``: masked
-  when partition skew pads the buckets past ``PAD_LIMIT``× the corpus.
-  Query batches are chunked so the scan's transients stay under
+  (:func:`.ops.adc.query_masked_scan`); work scales with ``N``. Query
+  batches are chunked so the scan's transients stay under
   ``hbm_budget_bytes`` (:func:`_masked_limit`).
+
+The layout policy (``layout=None``) depends on the index's device. On a
+CUDA device it is the card's own rule, :func:`card_layout`: buckets while
+they cost no more than the masked scan at any ``nprobe`` (a pad ratio up
+to :data:`CARD_PAD_LIMIT`, measured on the card) and fit
+:data:`CARD_BUCKET_SHARE` of the card's memory. Elsewhere it is the JAX
+package's ``_choose_layout`` (:func:`.host.choose_layout`): masked when
+partition skew pads the buckets past ``PAD_LIMIT``× the corpus.
 
 Exact rerank (:meth:`DeviceIndex.query_rerank`) re-scores the top ADC
 candidates against the original vectors on the device. Every query takes
@@ -39,9 +45,9 @@ import torch
 from torch.autograd import _profiler_enabled
 
 from . import _kernels
-from .host import check_metric, choose_layout
+from .host import bucket_len, check_metric, choose_layout
 from .ops.adc import query_masked_scan, range_masked_scan
-from .ops.bucketed import (Buckets, _query_block, bucketize, eager,
+from .ops.bucketed import (Buckets, _query_block, bucketize, eager, packs,
                            range_bucketed)
 from .ops.distance import full_f32
 from .parallel.bucketed import (query_bucketed_sharded,
@@ -59,6 +65,20 @@ GRAPH_KEYS = 4
 HBM_BUDGET_BYTES = 2 << 30
 
 LAYOUTS = ("bucketed", "masked")
+
+#: The card's break-even pad ratio of the bucketed layout: the masked
+#: scan's device time a query-row over the bucketed pipeline's device time
+#: a query-slot, measured on an H100 at the SIFT1M shape (1M × 128,
+#: P=1024, D=8, C=256) with every partition probed, the buckets' worst
+#: case (``profile_layout.py``): 13.1 at a batch of 1 query, 25–32 at
+#: 16–256, rounded down. Buckets padded to at most this many slots a row
+#: cost no more than the masked scan at any ``nprobe``.
+CARD_PAD_LIMIT = 13.0
+
+#: The share of a card's memory the buckets may take; the rest holds the
+#: originals a rerank reads, the graph route's pools and the query's
+#: transients.
+CARD_BUCKET_SHARE = 0.25
 
 
 def _masked_limit(cent_shape, cb_shape, n: int, budget: int,
@@ -78,6 +98,26 @@ def _masked_limit(cent_shape, cb_shape, n: int, budget: int,
         per_query = max(per_query, 8 * (p * d * c + p * m),
                         4 * p * d * c + 8 * n)
     return max(1, (budget - 16 * n) // per_query)
+
+
+def card_layout(counts, n: int, d: int, memory: int,
+                packed: bool = True) -> str:
+    """The layout policy on a CUDA device, from the partitions' sizes
+    ``counts [P]``, the corpus's ``n`` rows of ``d`` codes and the card's
+    ``memory`` in bytes: ``"bucketed"`` while the ``[P, L]`` buckets
+    (:func:`.host.bucket_len`) hold at most :data:`CARD_PAD_LIMIT` slots
+    a row and their bytes fit :data:`CARD_BUCKET_SHARE` of ``memory``,
+    else ``"masked"``. The bytes: the codes and rows on the card
+    (``ceil(d/4)`` words a slot where the codes are ``packed``, else
+    ``d``) and the host's unpacked ``[P, d, L]`` codes that
+    :func:`.ops.bucketed.bucketize` fills first."""
+    p = len(counts)
+    slots = p * bucket_len(counts)
+    words = -(-d // 4) if packed else d
+    nbytes = 4 * slots * (words + 1 + d)
+    fits = nbytes <= CARD_BUCKET_SHARE * memory
+    return "bucketed" if fits and slots <= CARD_PAD_LIMIT * max(n, 128) \
+        else "masked"
 
 
 def _range_limit(nprobe: int, l: int, cb_shape, budget: int) -> int:
@@ -273,7 +313,7 @@ class _Index:
         self.device = torch.device(device)
         p = centroids.shape[0]
         if layout is None:
-            layout = choose_layout(p, pidx, max(len(codes), 1))
+            layout = self._policy(p, np.asarray(codes), np.asarray(pidx))
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout: {layout!r}")
         self.layout = layout
@@ -291,6 +331,16 @@ class _Index:
         else:
             self.codes, self.pidx = self._place_rows(
                 np.asarray(codes, np.int32), np.asarray(pidx, np.int32))
+
+    def _policy(self, p: int, codes: np.ndarray, pidx: np.ndarray) -> str:
+        """The layout ``layout=None`` takes: :func:`card_layout` on a CUDA
+        device, the JAX package's :func:`.host.choose_layout` elsewhere."""
+        if self.device.type != "cuda":
+            return choose_layout(p, pidx, max(len(codes), 1))
+        memory = torch.cuda.get_device_properties(self.device).total_memory
+        counts = np.bincount(pidx.astype(np.int64, copy=False), minlength=p)
+        return card_layout(counts, len(codes), codes.shape[1], memory,
+                           packs(codes))
 
     # Where the data lives, and how one chunk is answered: on this device.
 
@@ -358,16 +408,17 @@ class _Index:
         """The host results of ``pipeline(qd, run, mask)`` for the batch
         ``q``: by the graph route where the index takes it and the call has
         no ``row_mask`` (its key: ``q``'s shape and ``key``), else op by op
-        (counted as ``graph.eager`` where the layout is bucketed on a CUDA
-        device)."""
+        (counted on a CUDA device: as ``graph.eager`` where the layout is
+        bucketed, as ``serve.masked`` where it is masked)."""
         graphs = self._graphs if row_mask is None and len(q) else None
         if graphs is not None:
             key = (np.shape(q), *key)
             out = graphs.replay(key, q, pipeline)
             if out is not None:
                 return out
-        if self.buckets is not None and self.device.type == "cuda":
-            count("graph.eager", 1)
+        if self.device.type == "cuda":
+            count("graph.eager" if self.buckets is not None
+                  else "serve.masked", 1)
         qd, mask = self._to_device(q, row_mask)
         out = _host(*pipeline(qd, eager, mask))
         if graphs is not None:
@@ -428,7 +479,8 @@ class _Index:
 class DeviceIndex(_Index):
     """IVF-PQ index held on ``device`` (``"cuda"`` by default), ready for
     batched queries. ``layout`` is ``"bucketed"``, ``"masked"`` or ``None``
-    (the JAX package's policy); ``rotation [M, M]`` is the OPQ rotation
+    (the policy of the device: :func:`card_layout` on a CUDA device, the
+    JAX package's elsewhere); ``rotation [M, M]`` is the OPQ rotation
     the codes were made in. On a CUDA device with the bucketed layout it
     takes the graph route (:class:`_Graphs`)."""
 
@@ -465,7 +517,8 @@ class ShardedIndex(_Index):
     only the probed buckets it owns with K-A,
     :mod:`.parallel.bucketed`) or **masked** (the rows split; each rank
     scans all its rows, :mod:`.parallel.query`); ``layout=None`` applies
-    the JAX package's policy. A query moves ``k`` candidates a rank;
+    the policy of the mesh's device, as :class:`DeviceIndex` does. A query
+    moves ``k`` candidates a rank;
     range search moves the candidate arrays. ``self.layout`` is
     ``"sharded-bucketed"`` or ``"sharded-masked"``."""
 

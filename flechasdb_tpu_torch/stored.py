@@ -995,9 +995,11 @@ class StoredDatabase:
 
         After this, :meth:`query`, :meth:`query_batch` and
         :meth:`query_range` are served from :class:`.serving.DeviceIndex`
-        — the warm serving mode — in the layout the JAX package's policy
-        picks (on the card, a bucketed index scans with kernel K-A), with
-        the stored OPQ rotation when there is one. With a ``mesh`` (a
+        — the warm serving mode — in the layout the device's policy
+        picks (:class:`.serving.DeviceIndex`: on the card the card's own
+        rule, under which a bucketed index scans with kernel K-A; elsewhere
+        the JAX package's), with the stored OPQ rotation when there is
+        one. With a ``mesh`` (a
         :class:`.parallel.mesh.CorpusMesh`; a collective call, made by
         every rank) the index is a :class:`.serving.ShardedIndex` on the
         mesh's devices, in the same layout: buckets split on the

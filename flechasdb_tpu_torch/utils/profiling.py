@@ -18,7 +18,8 @@ The program marks its stages with :func:`annotate` (``fdb.*`` spans:
 ``exact.queries`` and ``exact.pairs``; the graph route of
 :class:`..serving.DeviceIndex`: ``graph.replays``, the batches answered
 by replaying CUDA graphs, and ``graph.eager``, the bucketed batches on
-a CUDA device that ran op by op). Both
+a CUDA device that ran op by op; ``serve.masked``, the batches on a CUDA
+device that the masked layout answered). Both
 record only while a profiler collects: with none, a span or a count
 costs one check of the profiler's flag. A graph's capture takes the
 counts its stage makes with :func:`recording`, and its replays make
